@@ -11,11 +11,12 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
 
 1. Device and build: the card's name and power limit, the kernel build.
 2. Kernels: B2 (Hamming distance matrix) exactly equal to its plain version
-   at the matcher's shape (2 cameras x 400 keypoints x 512 landmarks) and at
-   ragged shapes; B1 (dense SPD solve) on Jacobi-equilibrated random SPD
-   systems at D = 7, 120, 132 with relative residual ≤ 1e-4 and relative
-   distance to the plain (Cholesky) solution ≤ 1e-3. Median times of kernel
-   and plain version at the slice's shapes, CUDA events.
+   at the three matchers' shapes (map: 2 cameras x 400 keypoints x 512
+   landmarks; stereo and temporal: 400 x 400, 2-D) and at ragged shapes; B1
+   (dense SPD solve) on Jacobi-equilibrated random SPD systems at D = 7,
+   120, 132 with relative residual ≤ 1e-4 and relative distance to the
+   plain (Cholesky) solution ≤ 1e-3. Median times of kernel and plain
+   version at the slice's shapes, CUDA events.
 3. Slice: S=8 states, 512 landmark slots (256 live), 4096 observation
    slots, two 752x480 cameras, K=400 keypoints per camera, 10 LM
    iterations, float32, with depth factors on every state and sonar-range
@@ -31,9 +32,37 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
    CUDA index_add_ into mm-level differences, printed beside a rerun's).
    Median per-frame time with kernels and with plain versions.
 
+4. Engine: the port's ``VioEngine.add_frame`` (the serial path) at the
+   shipped underwater configuration (``configs/underwater_sonar_depth.yaml``:
+   two 800x600 radial-tangential cameras, CLAHE, 3-level pyramid, 400
+   keypoints per camera, S=8, 10 LM iterations, depth and sonar), float32,
+   on the port's synthetic sequence: start-from-rest trajectory, 10 Hz for
+   3 s (29 frames), depth and sonar events, rendered on the card before the
+   run. B2 first on the first frame's own descriptors as the stereo matcher
+   pairs them, exactly equal to its plain version. Then at a fixed 10 LM
+   iterations per frame (``time_limit`` 0; the config's 35 ms budget
+   follows the wall clock) under deterministic CUDA algorithms: kernels,
+   plain versions, kernels again. The rerun must repeat the kernel run
+   exactly; the plain run must make the same decisions (keyframes, tracked
+   keypoints) on at least SHARED_MIN_FRAMES leading frames, with positions
+   within POS_TOL_MM of the kernel run's there (where the runs part is
+   printed). Then at the config's budget, four runs in turns: plain
+   versions, kernels (the main path: launch counts from 0 just before,
+   read just after), kernels, plain versions. Checks, on every run: a
+   result for every frame, median tracked keypoints >= 20, the window
+   filled and marginalized, a keyframe export with the ABI keys, finite
+   landmark covariances, both kernels launched (none in the plain runs),
+   and an SE(3)-aligned ATE within ATE_FACTOR x the JAX engine's own ATE on
+   the same events at the fixed iteration count (CPU, float32;
+   tools/engine_ate_reference.py): 1.5 x for the fixed-count runs, 2 x
+   for the budget runs, whose iterations follow the wall clock. Prints per-frame ``add_frame`` median
+   and p90 (host clock after a synchronize), the stage timers' medians,
+   and launches per frame.
+
 The second-to-last line of standard output is the kernels' JSON record; the
 last is ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -43,16 +72,36 @@ import time
 import numpy as np
 import torch
 
-from svin_tpu_torch import problems
+from svin_tpu_torch import problems, sim
 from svin_tpu_torch.convert import tree_to
 from svin_tpu_torch.estimator import WindowConfig, optimize
+from svin_tpu_torch.kinematics import Transformation
+from svin_tpu_torch.evaluation import ate_rmse
 from svin_tpu_torch.ops import cuda_lib, hamming, solve
-from svin_tpu_torch.pipeline import BackendStep
+from svin_tpu_torch.pipeline import BackendStep, VioEngine, load_config, run_events, synthetic_sequence
+from svin_tpu_torch.utils import Timing
 
 N_FRAMES = 5
 K = 400
 SOLVE_D = 120  # S·15 at the shipped window with fixed extrinsics
 CFG = WindowConfig(num_states=8, num_landmarks=512, num_obs=4096, max_iterations=10)
+ENGINE_CONFIG = "configs/underwater_sonar_depth.yaml"
+# the JAX engine's SE(3)-aligned ATE on this sequence's events at a fixed 10
+# LM iterations per frame, float32 on the CPU (tools/engine_ate_reference.py)
+JAX_ATE_M = 0.009505
+# runs at that fixed count repeat themselves (deterministic algorithms); runs
+# at the config's wall-clock budget do not, and spread wider
+ATE_FACTOR = {"fixed": 1.5, "budget": 2.0}
+# kernels vs plain engine at the fixed iteration count: the same decisions on
+# at least the first SHARED_MIN_FRAMES frames, positions within POS_TOL_MM there
+SHARED_MIN_FRAMES = 3
+POS_TOL_MM = 5.0
+EXPORT_KEYS = ("kf_index", "timestamp", "image", "T_WC_r", "T_WC_q", "points_W", "landmark_ids",
+               "keypoints_uv", "quality", "num_tracked", "num_new", "quadrant_counts",
+               "response_strengths", "covisibilities", "point_covisibilities", "sequence")
+STAGES = ("2.0 frame_total", "2.1 detect_describe", "2.1.2 detect_fetch", "2.4 matching",
+          "2.4.1 match_dispatch", "2.4.2 match_fetch", "2.5 stereo_init", "2.6 temporal_init",
+          "3.1 optimization", "3.1.1 opt_dispatch", "3.1.2 opt_fetch", "3.2 kf_export")
 
 
 def log(msg: str) -> None:
@@ -91,19 +140,27 @@ def kernel_phase(dev) -> dict:
         rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32).view(np.int32),
         device=dev)
 
-    # B2: exact at the matcher's shape and at ragged ones
-    for na, nb, batch in ((K, 512, 2), (1, 1, 1), (129, 257, 1), (400, 1, 1)):
-        a, b = words((batch, na, 8)), words((nb, 8))
+    # B2: exact at the three matchers' shapes (map: both cameras' keypoints
+    # against the landmark table; stereo and temporal: one camera's
+    # keypoints against another's, 2-D) and at ragged ones
+    for a_shape, b_shape in (((2, K, 8), (512, 8)), ((K, 8), (K, 8)), ((1, 1, 8), (1, 8)),
+                             ((1, 129, 8), (257, 8)), ((1, K, 8), (1, 8)), ((129, 8), (257, 8))):
+        a, b = words(a_shape), words(b_shape)
         got = hamming.hamming_matrix(a, b)
         want = hamming.hamming_matrix_plain(a, b)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"hamming kernel != plain at ({batch},{na},8)x({nb},8)")
+            raise AssertionError(f"hamming kernel != plain at {a_shape}x{b_shape}")
     a, b = words((2, K, 8)), words((512, 8))
     ham_err = int((hamming.hamming_matrix(a, b) - hamming.hamming_matrix_plain(a, b)).abs().max())
     ham_ms = event_ms(lambda: hamming.hamming_matrix(a, b))
     ham_plain_ms = event_ms(lambda: hamming.hamming_matrix_plain(a, b))
-    log(f"B2 hamming (2,{K},8)x(512,8): exact; kernel {ham_ms:.4f} ms, plain {ham_plain_ms:.4f} ms")
+    log(f"B2 hamming (2,{K},8)x(512,8) (map): exact; kernel {ham_ms:.4f} ms, plain "
+        f"{ham_plain_ms:.4f} ms")
+    a, b = words((K, 8)), words((K, 8))
+    log(f"B2 hamming ({K},8)x({K},8) (stereo, temporal): exact; kernel "
+        f"{event_ms(lambda: hamming.hamming_matrix(a, b)):.4f} ms, plain "
+        f"{event_ms(lambda: hamming.hamming_matrix_plain(a, b)):.4f} ms")
 
     # B1: stated tolerance on equilibrated SPD systems
     for D in (7, SOLVE_D, 132):
@@ -227,7 +284,7 @@ def slice_phase(dev) -> dict:
             f"kernel rerun max |dr| {d_rerun:.1e} m")
 
     k_ms, p_ms = [], []
-    for _ in range(3):
+    for _ in range(2):
         for c in cases:  # plain, kernel, kernel, plain
             p_ms.append(step_ms(plain, c))
             k_ms.append(step_ms(step, c))
@@ -236,6 +293,191 @@ def slice_phase(dev) -> dict:
     log(f"per-frame step: kernels median {statistics.median(k_ms):.2f} ms, "
         f"plain median {statistics.median(p_ms):.2f} ms ({len(k_ms)} runs each)")
     return launches
+
+
+class TimedEngine:
+    """An engine whose ``add_frame`` is timed on the host clock, the device
+    synchronized before each reading."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.frame_ms = []
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def add_frame(self, t, images):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = self.engine.add_frame(t, images)
+        torch.cuda.synchronize()
+        self.frame_ms.append(1e3 * (time.perf_counter() - t0))
+        return r
+
+
+def drive_engine(name, cfg, events, gt, dev, verbose=True, **kernels) -> dict:
+    """One run of the serial engine path over ``events``; checks and prints
+    what came out (with ``verbose``, per frame and per stage)."""
+    engine = TimedEngine(VioEngine(cfg, device=dev, **kernels))
+    Timing.reset()
+    solve.spd_solve_gj.launches = 0
+    hamming.hamming_matrix_cuda.launches = 0
+    results = run_events(engine, events)
+    torch.cuda.synchronize()
+    launches = {"spd_solve_gj": solve.spd_solve_gj.launches,
+                "hamming_matrix": hamming.hamming_matrix_cuda.launches}
+    eng = engine.engine
+    n_frames = sum(ev.kind == "frame" for ev in events)
+    if len(results) != n_frames:
+        raise AssertionError(f"{name}: {len(results)} results for {n_frames} frames")
+    tracked = [r.num_tracked for r in results]
+    if not np.median(tracked[1:]) >= 20:
+        raise AssertionError(f"{name}: median tracked {np.median(tracked[1:])}")
+    S = eng.wcfg.num_states
+    if not (eng.n_states == S - 1 and any(k[1] for k in eng._opt_programs)):
+        raise AssertionError(f"{name}: window not filled and marginalized (n_states {eng.n_states})")
+    kfs = [r.keyframe_export for r in results if r.keyframe_export is not None]
+    if not kfs or any(k not in kf for kf in kfs for k in EXPORT_KEYS):
+        raise AssertionError(f"{name}: keyframe export missing or without the ABI keys")
+    if not np.isfinite(eng._lm_cov).all():
+        raise AssertionError(f"{name}: non-finite landmark covariance in the gate table")
+    est = np.stack([r.T_WS.r for r in results])
+    ate, _ = ate_rmse(est, gt, with_scale=False)
+    _, al = ate_rmse(est, gt, with_scale=True)
+    factor = ATE_FACTOR["fixed" if cfg.time_limit <= 0 else "budget"]
+    if not ate <= factor * JAX_ATE_M:
+        raise AssertionError(f"{name}: ATE {ate:.6f} m over the bound {factor * JAX_ATE_M:.6f} m")
+    ms = engine.frame_ms[1:]  # the first frame initializes (no solve)
+    if not verbose:
+        log(f"engine [{name}]: ATE {ate:.6f} m, add_frame median "
+            f"{statistics.median(ms):.2f} ms, p90 {float(np.percentile(ms, 90)):.2f} ms")
+        return dict(launches=launches, ate=ate, frame_ms=ms, results=results)
+    log(f"engine [{name}]: {len(results)} frames, {len(kfs)} keyframes, median tracked "
+        f"{np.median(tracked[1:]):.0f}, n_states {eng.n_states}/{S}, ATE (SE(3)) {ate:.6f} m "
+        f"(bound {factor * JAX_ATE_M:.6f} m = {factor} x the JAX engine's {JAX_ATE_M:.6f} m), "
+        f"Sim(3) scale {al.scale:.4f}")
+    log(f"  tracked per frame {tracked}")
+    log(f"  LM iterations per frame {[r.lm_iterations for r in results]}")
+    log(f"  add_frame per frame (frames 2-{len(results)}): median {statistics.median(ms):.2f} ms, "
+        f"p90 {float(np.percentile(ms, 90)):.2f} ms, max {max(ms):.2f} ms")
+    stages = {k: statistics.median(list(Timing.get(k).window)) * 1e3
+              for k in STAGES if Timing.get(k) is not None}
+    log("  stage medians (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+    log(f"  launches {launches}, per frame "
+        f"{ {k: round(v / len(results), 2) for k, v in launches.items()} }")
+    return dict(launches=launches, ate=ate, frame_ms=ms, results=results)
+
+
+def frame_descriptor_check(cfg, frame, dev) -> None:
+    """B2 on one rendered frame's own descriptors, computed by the engine's
+    frontend and matched as the stereo matcher matches them: camera 0's
+    (K,8) words against camera 1's, exactly equal to the plain version."""
+    eng = VioEngine(cfg, device=dev)
+    level = Transformation(r=np.zeros(3), q=np.array([0.0, 0.0, 0.0, 1.0]))
+    _, descs, valids, *_ = eng._detect_describe(frame.images, level)
+    a, b = (torch.as_tensor(d, device=dev) for d in descs[:2])
+    got = hamming.hamming_matrix(a, b)
+    want = hamming.hamming_matrix_plain(a, b)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"hamming kernel != plain on frame descriptors {tuple(a.shape)}x{tuple(b.shape)}")
+    log(f"B2 hamming on the first frame's descriptors {tuple(a.shape)}x{tuple(b.shape)} "
+        f"({int(valids[0].sum())} and {int(valids[1].sum())} valid keypoints): exact")
+
+
+def compare_runs(a: dict, b: dict) -> dict:
+    """Frame by frame, two engine runs on the same events: how many leading
+    frames make the same decisions (keyframe, tracked keypoints), and the
+    position difference per frame (mm)."""
+    pairs = list(zip(a["results"], b["results"]))
+    same = [x.is_keyframe == y.is_keyframe and x.num_tracked == y.num_tracked for x, y in pairs]
+    return dict(
+        shared=same.index(False) if False in same else len(same),
+        kf_diff=sum(x.is_keyframe != y.is_keyframe for x, y in pairs),
+        pos_mm=[1e3 * float(np.linalg.norm(np.asarray(x.T_WS.r) - np.asarray(y.T_WS.r)))
+                for x, y in pairs],
+    )
+
+
+def engine_input(dev):
+    """(config, events, ground-truth positions per frame): the port's
+    synthetic sequence at the underwater configuration, rendered on the
+    card, images handed over as host float32 arrays, as a camera delivers
+    them."""
+    cfg = load_config(ENGINE_CONFIG)
+    events, renderer = synthetic_sequence(
+        cfg.build_rig(torch.float64, dev), duration=3.0, cam_rate=10.0,
+        imu_rate=float(cfg.imu.rate), imu_params=cfg.imu, seed=0, n_points=600,
+        traj=sim.default_trajectory(scale=0.4, ramp_tau=0.8), spread=6.0, depth_offset=3.0,
+        t_first_frame=0.12, depth_enabled=True, sonar_enabled=True, sonar_T_SSo=cfg.T_SSo,
+    )
+    events = list(events)  # renders every frame on the card
+    gt = np.stack([renderer.pose(ev.t).r.numpy() for ev in events if ev.kind == "frame"])
+    return cfg, events, gt
+
+
+def engine_phase(dev) -> dict:
+    t0 = time.perf_counter()
+    cfg, events, gt = engine_input(dev)
+    torch.cuda.synchronize()
+    frames = [ev for ev in events if ev.kind == "frame"]
+    cam = cfg.cameras[0]
+    log(f"engine input: {len(frames)} frames of {len(frames[0].images)} x {cam.width}x{cam.height}, "
+        f"{len(events)} events, rendered in {time.perf_counter() - t0:.1f} s")
+    plain_kw = dict(solve=solve.solve_spd_plain, hamming=hamming.hamming_matrix_plain)
+    frame_descriptor_check(cfg, frames[0], dev)
+
+    # a fixed LM iteration count (time_limit 0: the config's 35 ms budget
+    # follows the wall clock) and deterministic CUDA algorithms (index_add_
+    # sums in a fixed order), so a kernel rerun repeats itself exactly and
+    # the kernel and plain engines differ only by the kernels' rounding:
+    # frame by frame, they make the same decisions until a rounding
+    # difference flips a discrete one (a match, an inlier, a keyframe), and
+    # from then on are two runs held only by the ATE bound
+    fixed = dataclasses.replace(cfg, time_limit=0.0)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        k_fix = drive_engine("kernels, 10 LM iterations", fixed, events, gt, dev, verbose=False)
+        p_fix = drive_engine("plain, 10 LM iterations", fixed, events, gt, dev, verbose=False,
+                             **plain_kw)
+        k_fix2 = drive_engine("kernels again, 10 LM iterations", fixed, events, gt, dev,
+                              verbose=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    vs_plain, vs_rerun = compare_runs(k_fix, p_fix), compare_runs(k_fix, k_fix2)
+    for what, c in (("kernels vs plain", vs_plain), ("kernels vs kernels rerun", vs_rerun)):
+        n = c["shared"]
+        log(f"engine, 10 LM iterations, {what}: same keyframe decisions and tracked counts on "
+            f"the first {n} frames (|dr| there max {max(c['pos_mm'][:n]):.3f} mm); keyframe "
+            f"decisions differ on {c['kf_diff']} frames; |dr| per frame (mm) "
+            f"{[round(x, 2) for x in c['pos_mm']]}")
+    if not (vs_rerun["shared"] == len(frames) and max(vs_rerun["pos_mm"]) == 0.0):
+        raise AssertionError("engine, 10 LM iterations: the kernel engine did not repeat itself")
+    if not (vs_plain["shared"] >= SHARED_MIN_FRAMES
+            and max(vs_plain["pos_mm"][:vs_plain["shared"]]) <= POS_TOL_MM):
+        raise AssertionError(f"engine, 10 LM iterations: kernels vs plain out of tolerance (same "
+                             f"decisions on >= {SHARED_MIN_FRAMES} frames, |dr| <= {POS_TOL_MM} "
+                             f"mm there)")
+
+    # at the config's budget, in turns: plain, kernels (the main path: its
+    # launch counts are the ones reported), kernels, plain
+    plain = drive_engine("plain", cfg, events, gt, dev, **plain_kw)
+    out = drive_engine("kernels", cfg, events, gt, dev)
+    again = drive_engine("kernels, again", cfg, events, gt, dev, verbose=False)
+    plain_again = drive_engine("plain, again", cfg, events, gt, dev, verbose=False, **plain_kw)
+    if not all(v > 0 for r in (out, again, k_fix, k_fix2) for v in r["launches"].values()):
+        raise AssertionError(f"engine: a kernel was not launched: {out['launches']}")
+    if any(v for r in (plain, plain_again, p_fix) for v in r["launches"].values()):
+        raise AssertionError("engine [plain]: a kernel was launched")
+    k_ms, p_ms = out["frame_ms"] + again["frame_ms"], plain["frame_ms"] + plain_again["frame_ms"]
+    log(f"engine add_frame over both runs each (plain, kernels, kernels, plain): kernels median "
+        f"{statistics.median(k_ms):.2f} ms, p90 {float(np.percentile(k_ms, 90)):.2f} ms; plain "
+        f"median {statistics.median(p_ms):.2f} ms, p90 {float(np.percentile(p_ms, 90)):.2f} ms")
+    log(f"engine ATE: 10 LM iterations: kernels {k_fix['ate']:.6f} m and {k_fix2['ate']:.6f} m, "
+        f"plain {p_fix['ate']:.6f} m, JAX engine (CPU, float32) {JAX_ATE_M:.6f} m; at the "
+        f"config's budget: kernels {out['ate']:.6f} m and {again['ate']:.6f} m, plain "
+        f"{plain['ate']:.6f} m and {plain_again['ate']:.6f} m")
+    return out["launches"]
 
 
 def main() -> int:
@@ -263,6 +505,9 @@ def main() -> int:
 
     timings = kernel_phase(dev)
     launches = slice_phase(dev)
+    engine_launches = engine_phase(dev)
+    launches = {k: launches[k] + engine_launches[k] for k in launches}
+    log(f"launches summed over the backend-step and engine paths: {launches}")
 
     record = {"kernels": [
         {"name": "spd_solve_gj", "route": "cuda", "source": "svin_tpu_torch/csrc/spd_solve_gj.cu",

@@ -2,13 +2,22 @@
 
 ``from_numpy_tree`` turns NamedTuples whose leaves are arrays (numpy, or
 anything ``numpy.asarray`` takes) into the port's NamedTuple of the same
-class name with tensor leaves; ``to_numpy_tree`` goes the other way. Float
-arrays become ``dtype``, bool stays bool, integer index arrays keep their
-width, and packed uint32 descriptor words become their bit-identical int32
-view. Non-array leaves (ints, strings, Python floats, None) pass through.
+class name with tensor leaves; ``to_numpy_tree`` goes the other way (host
+copies). Float arrays become ``dtype``, bool stays bool, integer index
+arrays keep their width, and packed uint32 descriptor words become their
+bit-identical int32 view. Non-array leaves (ints, strings, Python floats,
+None) pass through.
+
+For the engine: ``config_from_numpy`` (a JAX-package ``VioConfig``, whose
+fields are numpy and Python values → the port's), ``renderer_from_scene``
+(a synthetic scene as numpy arrays → the port's renderer) and
+``engine_from_state`` (an engine's host state as numpy → a port
+``VioEngine``). Callers hand over host values only: extract them with the
+JAX package's own tools first.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -65,15 +74,35 @@ def from_numpy_tree(tree, device=None, dtype=torch.float64):
     return tree
 
 
-def to_numpy_tree(tree):
-    """Tensor-leaf NamedTuples → the same NamedTuples with numpy leaves."""
+def _map_tensors(tree, fn):
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        return fn(tree)
     if _is_namedtuple(tree):
-        return type(tree)(*(to_numpy_tree(x) for x in tree))
+        return type(tree)(*(_map_tensors(x, fn) for x in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_numpy_tree(x) for x in tree)
+        return type(tree)(_map_tensors(x, fn) for x in tree)
     return tree
+
+
+def to_numpy_tree(tree):
+    """Tensor-leaf NamedTuples → the same NamedTuples with numpy leaves
+    (independent host copies). One fetch: every device leaf is queued as a
+    non-blocking copy into pinned host memory, then the host waits once."""
+    streams = {}
+
+    def fetch(t):
+        t = t.detach()
+        if t.device.type == "cpu":
+            return np.array(t.numpy())  # .numpy() shares the tensor's memory
+        streams.setdefault(t.device, torch.cuda.current_stream(t.device))
+        return t.to("cpu", non_blocking=True)
+
+    host = _map_tensors(tree, fetch)
+    if not streams:
+        return host
+    for s in streams.values():
+        s.synchronize()
+    return _map_tensors(host, lambda t: t.numpy())
 
 
 def tree_to(tree, device=None, dtype=None):
@@ -88,3 +117,103 @@ def tree_to(tree, device=None, dtype=None):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_to(x, device, dtype) for x in tree)
     return tree
+
+
+def numpy_tree_as_port(tree):
+    """A numpy-leaf NamedTuple tree (the JAX package's classes) → the port's
+    classes of the same names with numpy leaves (copies; uint32 words as
+    their int32 view)."""
+    if _is_namedtuple(tree):
+        cls = PORT_TYPES.get(type(tree).__name__, type(tree))
+        return cls(**{f: numpy_tree_as_port(getattr(tree, f))
+                      for f in cls._fields if hasattr(tree, f)})
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(numpy_tree_as_port(x) for x in tree)
+    if hasattr(tree, "__array__"):
+        a = np.array(tree)
+        return a.view(np.int32) if a.dtype == np.uint32 else a
+    return tree
+
+
+def config_from_numpy(cfg):
+    """A JAX-package ``VioConfig`` (numpy and Python fields) → the port's."""
+    from .pipeline import config as pc
+
+    d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(pc.VioConfig)}
+    d["cameras"] = [pc.CameraConfig(**{f.name: getattr(c, f.name)
+                                       for f in dataclasses.fields(pc.CameraConfig)})
+                    for c in cfg.cameras]
+    d["imu"] = imu.ImuParameters(**{k: getattr(cfg.imu, k) for k in imu.ImuParameters._fields})
+    for name, cls in (("loop_closure", pc.LoopClosureConfig), ("health", pc.HealthConfig),
+                      ("global_map", pc.GlobalMapConfig)):
+        sub = getattr(cfg, name)
+        d[name] = cls(**{f.name: getattr(sub, f.name) for f in dataclasses.fields(cls)})
+    d["T_BS"] = np.array(cfg.T_BS, float)
+    d["T_SSo"] = np.array(cfg.T_SSo, float)
+    return pc.VioConfig(**d)
+
+
+def renderer_from_scene(rig, traj, scene: dict):
+    """A synthetic scene ``{"points_W", "brightness", "icov_a", "icov_b",
+    "icov_c", "blob_sigma"}`` (numpy) → the port's ``SyntheticRenderer`` on
+    ``rig`` (an ``NCameraSystem`` of the port) along ``traj``."""
+    from .pipeline.dataset import SyntheticRenderer
+
+    return SyntheticRenderer.from_scene(
+        rig, traj, scene["points_W"], scene["brightness"], scene["icov_a"], scene["icov_b"],
+        scene["icov_c"], scene["blob_sigma"])
+
+
+# the engine attributes that carry its state from one frame to the next
+ENGINE_STATE_FIELDS = (
+    "window", "factors", "_lm_desc", "_lm_cov", "frames", "imu_t", "imu_gyro", "imu_acc",
+    "depth_buffer", "sonar_buffer", "first_depth", "n_states", "last_kf_slot",
+    "_track_miss_streak", "_cost_last", "_lm_iterations_last", "rotation_only_detections",
+    "frame_count", "kf_count", "_kf_index_by_state_id", "sequence", "next_state_id",
+    "next_lm_id", "trajectory", "_rng", "scale_refiner", "_last_ransac_T_WS", "_scale_last_t",
+    "_opt_iter_ema", "_opt_calls",
+)
+
+
+def engine_from_state(engine, state: dict):
+    """Load an engine's host state into the port ``engine`` (in place;
+    returned). ``state`` maps each name of ``ENGINE_STATE_FIELDS`` to numpy
+    and Python values: the window and factor tables as numpy-leaf
+    NamedTuples, ``frames`` as {slot: dict of the frame record's fields,
+    ``image0`` a uint8 array or None}, ``_rng`` as ``RandomState.get_state()``,
+    ``scale_refiner`` as a dict of its fields (``result`` a dict or None),
+    ``_last_ransac_T_WS`` as (r, q) or None."""
+    import copy
+
+    from .frontend.scale_refinement import ScaleEstimate, ScaleRefiner
+    from .kinematics import Transformation
+    from .pipeline.vio import _FrameData
+
+    st = copy.deepcopy(state)
+    engine.window = numpy_tree_as_port(st.pop("window"))
+    engine.factors = numpy_tree_as_port(st.pop("factors"))
+    engine._lm_desc = numpy_tree_as_port(st.pop("_lm_desc"))
+    engine._lm_cov = np.array(st.pop("_lm_cov"), float)
+    frames = {}
+    for slot, fd in st.pop("frames").items():
+        fd = dict(fd)
+        img0 = fd.pop("image0")
+        frames[int(slot)] = _FrameData(
+            image0=None if img0 is None else torch.as_tensor(np.array(img0), device=engine.device),
+            **{k: [numpy_tree_as_port(a) for a in v] if isinstance(v, (list, tuple)) else v
+               for k, v in fd.items()})
+    engine.frames = frames
+    rng = np.random.RandomState()
+    rng.set_state(st.pop("_rng"))
+    engine._rng = rng
+    sr = st.pop("scale_refiner")
+    result = sr.pop("result")
+    engine.scale_refiner = ScaleRefiner(
+        **sr, result=None if result is None else ScaleEstimate(**result))
+    T = st.pop("_last_ransac_T_WS")
+    engine._last_ransac_T_WS = None if T is None else Transformation(
+        r=np.array(T[0]), q=np.array(T[1]))
+    engine.trajectory = [(t, np.array(r), np.array(q)) for t, r, q in st.pop("trajectory")]
+    for k, v in st.items():
+        setattr(engine, k, v)
+    return engine

@@ -3,6 +3,7 @@ from .preintegration import (
     Preintegral,
     error_and_jacobians,
     gravity_vector,
+    init_pose_from_imu,
     preintegrate,
     propagate,
     sqrt_information,
@@ -13,6 +14,7 @@ __all__ = [
     "Preintegral",
     "error_and_jacobians",
     "gravity_vector",
+    "init_pose_from_imu",
     "preintegrate",
     "propagate",
     "sqrt_information",

@@ -300,3 +300,19 @@ def error_and_jacobians(
     F1[..., 6:9, 6:9] = -C_S0_W
 
     return error, F0, F1
+
+
+def init_pose_from_imu(acc_mean: torch.Tensor) -> Transformation:
+    """Gravity-aligned initial pose: q_WS maps the measured mean specific
+    force to +z in the world (the minimal rotation about their common
+    normal); r = 0."""
+    dtype, device = acc_mean.dtype, acc_mean.device
+    z_S = acc_mean / torch.linalg.norm(acc_mean)
+    z_W = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
+    axis = quat.cross(z_S, z_W)
+    s = torch.linalg.norm(axis)
+    c = torch.dot(z_S, z_W)
+    angle = torch.atan2(s, c)
+    axis = torch.where(s < 1e-8, torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=device),
+                       axis / torch.clamp(s, min=1e-12))
+    return Transformation(r=torch.zeros(3, dtype=dtype, device=device), q=quat.exp(axis * angle))

@@ -1,7 +1,8 @@
-from . import quaternion
+from . import npq, quaternion
 from .transformation import (
     Transformation,
     compose,
+    from_matrix,
     from_rq,
     identity,
     inverse,
@@ -13,9 +14,11 @@ from .transformation import (
 __all__ = [
     "Transformation",
     "compose",
+    "from_matrix",
     "from_rq",
     "identity",
     "inverse",
+    "npq",
     "ominus",
     "oplus",
     "quaternion",

@@ -69,6 +69,27 @@ def to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def from_rotation_matrix(C: torch.Tensor) -> torch.Tensor:
+    """Quaternion from rotation matrix (..., 3, 3), branch-free (Shepperd's
+    four candidate magnitudes, signs from the skew part)."""
+    m00, m01, m02 = C[..., 0, 0], C[..., 0, 1], C[..., 0, 2]
+    m10, m11, m12 = C[..., 1, 0], C[..., 1, 1], C[..., 1, 2]
+    m20, m21, m22 = C[..., 2, 0], C[..., 2, 1], C[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.sqrt(torch.clamp(1.0 + tr, min=0.0)) / 2.0
+    qx = torch.sqrt(torch.clamp(1.0 + m00 - m11 - m22, min=0.0)) / 2.0
+    qy = torch.sqrt(torch.clamp(1.0 - m00 + m11 - m22, min=0.0)) / 2.0
+    qz = torch.sqrt(torch.clamp(1.0 - m00 - m11 + m22, min=0.0)) / 2.0
+
+    def sign_of(d):
+        return torch.sign(torch.where(d == 0, torch.ones_like(d), d))
+
+    qx = qx * sign_of(m21 - m12)
+    qy = qy * sign_of(m02 - m20)
+    qz = qz * sign_of(m10 - m01)
+    return normalize(torch.stack([qx, qy, qz, qw], dim=-1))
+
+
 def exp(phi: torch.Tensor) -> torch.Tensor:
     """SO(3) exponential: rotation vector (..., 3) → quaternion, Taylor-safe
     at phi → 0."""

@@ -31,6 +31,12 @@ def identity(batch: tuple = (), dtype=torch.float64, device=None) -> Transformat
     )
 
 
+def from_matrix(T, dtype=torch.float64, device=None) -> Transformation:
+    """(..., 4, 4) homogeneous matrix → Transformation."""
+    T = torch.as_tensor(T, dtype=dtype, device=device)
+    return Transformation(r=T[..., :3, 3], q=quat.from_rotation_matrix(T[..., :3, :3]))
+
+
 def from_rq(r, q, dtype=torch.float64, device=None) -> Transformation:
     return Transformation(
         r=torch.as_tensor(r, dtype=dtype, device=device),

@@ -12,7 +12,9 @@ pivoting vs float32 Cholesky) on Jacobi-equilibrated SPD systems: relative
 residual ≤ 1e-4 and relative distance to the plain solution ≤ 1e-3. The
 backend step with kernels vs with plain versions: identical matches (the
 distance matrix is exact), cost within 1% and positions within 1 mm (the
-two solvers round differently and the LM loop carries that forward).
+two solvers round differently and the LM loop carries that forward). The
+engine's serial path at the CPU tests' size: the CPU tests' tracking and
+5 cm ATE bounds, with the kernels and with the plain versions.
 """
 import numpy as np
 import pytest
@@ -130,3 +132,45 @@ def test_lm_loop_never_waits_on_the_host(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert float(res.cost) < float(res.cost0)
+
+
+def _small_engine_run(dev, **kernels):
+    """The engine's serial path on the card at the CPU tests' size: two
+    200x150 cameras, 300 blobs, 6 Hz for 2.6 s (the port's own sequence)."""
+    from svin_tpu_torch import sim
+    from svin_tpu_torch.cameras import NCameraSystem, make_camera
+    from svin_tpu_torch.evaluation import ate_rmse
+    from svin_tpu_torch.kinematics import from_rq
+    from svin_tpu_torch.pipeline import VioConfig, VioEngine, run_events, synthetic_sequence
+
+    cam = make_camera(200, 150, 160.0, 160.0, 100.0, 75.0, model="none", device=dev)
+    rig = NCameraSystem()
+    rig.add_camera(from_rq([0.0, 0.0, 0.0], [0, 0, 0, 1], device=dev), cam)
+    rig.add_camera(from_rq([0.2, 0.0, 0.0], [0, 0, 0, 1], device=dev), cam)
+    cfg = VioConfig(num_keyframes=4, num_imu_frames=2, max_keypoints=150, max_iterations=5)
+    events, renderer = synthetic_sequence(
+        rig, duration=2.6, cam_rate=6.0, imu_rate=100.0, imu_params=cfg.imu, seed=3,
+        n_points=300, traj=sim.default_trajectory(scale=0.4, ramp_tau=0.8), spread=6.0,
+        depth_offset=3.0, t_first_frame=0.12)
+    engine = VioEngine(cfg, rig=rig, device=dev, **kernels)
+    results = run_events(engine, events)
+    est = np.stack([r.T_WS.r for r in results])
+    gt = np.stack([renderer.pose(r.timestamp).r.numpy() for r in results])
+    return engine, results, ate_rmse(est, gt, with_scale=False)[0]
+
+
+def test_engine_runs_on_the_card_with_kernels_and_plain(dev):
+    """float32 on the card: the serial ``add_frame`` path tracks, stays
+    within the CPU tests' ATE bound (5 cm) and launches both kernels; with
+    the plain versions it launches none and meets the same bound."""
+    n_solve, n_ham = tsolve.spd_solve_gj.launches, tham.hamming_matrix_cuda.launches
+    engine, results, ate = _small_engine_run(dev)
+    assert len(results) >= 10 and np.median([r.num_tracked for r in results[1:]]) >= 20
+    assert ate < 0.05, ate
+    assert tsolve.spd_solve_gj.launches > n_solve and tham.hamming_matrix_cuda.launches > n_ham
+    assert np.isfinite(engine._lm_cov).all()
+    n_solve, n_ham = tsolve.spd_solve_gj.launches, tham.hamming_matrix_cuda.launches
+    _, _, ate_plain = _small_engine_run(dev, solve=tsolve.solve_spd_plain,
+                                        hamming=tham.hamming_matrix_plain)
+    assert ate_plain < 0.05, ate_plain
+    assert (tsolve.spd_solve_gj.launches, tham.hamming_matrix_cuda.launches) == (n_solve, n_ham)

@@ -1,6 +1,7 @@
 """Shared set-up for the PyTorch-port parity tests: a synthetic window
 problem from the JAX package's builder, with water-depth, sonar-range and
-landmark-prior factors attached, handed to both packages."""
+landmark-prior factors attached, handed to both packages; and the JAX
+package's RANSAC draws, rebuilt from a PRNG key for the port."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,8 +13,10 @@ from svin_tpu.estimator import window as jwin
 from svin_tpu.imu import Preintegral as JaxPreintegral
 from svin_tpu.problems import build_window_problem
 from svin_tpu_torch import problems as tproblems
+from svin_tpu_torch.cameras import NCameraSystem, make_camera
 from svin_tpu_torch.convert import from_numpy_tree
 from svin_tpu_torch.estimator import WindowConfig
+from svin_tpu_torch.kinematics import from_rq
 
 JAX_TYPES = {
     cls.__name__: cls
@@ -159,3 +162,35 @@ def assert_tree_close(got, want, rtol, atol_rel=0.0, name=""):
         assert got == want, name
     else:
         assert_close(got, want, rtol, atol_rel, name)
+
+
+def jax_draws(key, valid, num_hypotheses, sample_size):
+    """The (H, s) sample indices the JAX package's RANSACs draw from ``key``
+    (``jax.random.split`` + ``jax.random.choice`` with probabilities ∝
+    valid + 1e-9), as an int64 tensor."""
+    valid = jnp.asarray(np.asarray(valid))
+    N = valid.shape[0]
+    probs = jnp.where(valid, 1.0, 1e-9)
+    keys = jax.random.split(key, num_hypotheses)
+    idx = jax.vmap(lambda k: jax.random.choice(
+        k, N, shape=(sample_size,), replace=False, p=probs / jnp.sum(probs)))(keys)
+    return torch.as_tensor(np.array(idx), dtype=torch.int64)
+
+
+def jax_engine_draw(seed, sub, valid, num_hypotheses, sample_size):
+    """The JAX engine's draws, in the port engine's ``draw_hypotheses``
+    form: key ``PRNGKey(seed)``, or half ``sub`` of its split."""
+    key = jax.random.PRNGKey(seed)
+    if sub is not None:
+        key = jax.random.split(key)[sub]
+    return jax_draws(key, valid.cpu().numpy(), num_hypotheses, sample_size).to(valid.device)
+
+
+def port_rig() -> NCameraSystem:
+    """The port's copy of ``vio_fixtures.small_rig``: two 200x150 pinhole
+    cameras, 20 cm baseline."""
+    cam = make_camera(200, 150, 160.0, 160.0, 100.0, 75.0, model="none")
+    rig = NCameraSystem()
+    rig.add_camera(from_rq([0.0, 0.0, 0.0], [0, 0, 0, 1]), cam)
+    rig.add_camera(from_rq([0.2, 0.0, 0.0], [0, 0, 0, 1]), cam)
+    return rig
