@@ -9,24 +9,42 @@ prune) at the shipped engine shapes and check what comes out.
 Needs one CUDA card (it exits nonzero without one) and ``nvcc`` (the
 kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
 
-1. Device and build: the card's name and power limit, the kernel build.
-2. Kernels: B2 (Hamming distance matrix) exactly equal to its plain version
-   at the three matchers' shapes (map: 2 cameras x 400 keypoints x 512
-   landmarks; stereo and temporal: 400 x 400, 2-D) and at ragged shapes; B1
-   (dense SPD solve) on Jacobi-equilibrated random SPD systems at D = 7,
-   120, 132 with relative residual ≤ 1e-4 and relative distance to the
-   plain (Cholesky) solution ≤ 1e-3. Median times of kernel and plain
-   version at the slice's shapes, CUDA events.
+1. Device and build: the card's name and power limit, the kernel build
+   (one ``nvcc`` per source, all started together).
+2. Kernels, each held to its plain version, then timed at the main path's
+   shapes in turns (kernel, library, ...) by ``device_ms``: device ms per
+   launch from 200 launches back to back between two CUDA events (a spin
+   kernel ahead keeps the card busy while the host enqueues them), and host
+   µs per call on the host clock. For B1, the fused matcher and what they
+   are compared with (several launches per call), also the device time per
+   call summed from a ``torch.profiler`` trace (``traced_ms``), gaps not
+   counted, and the device operations per call.
+   - B2's distance matrix exactly equal to its plain version at the three
+     matchers' shapes (map: 2 cameras x 400 keypoints x 512 landmarks;
+     stereo and temporal: 400 x 400, 2-D) and at ragged shapes; timed
+     beside one fp16 ``torch.matmul`` of the unpacked ±1 bits (the JAX
+     package's ``hamming_matrix_mxu`` formula, exact in fp16; unpacking
+     not timed).
+   - B1, the blocked-Cholesky solve, on Jacobi-equilibrated random SPD
+     systems at D = 7, 120, 132 with relative residual ≤ 1e-4 and relative
+     distance to the plain (Cholesky) solution ≤ 1e-3, and a batch of four
+     at D = 120 with one non-SPD system that must come out all NaN; timed
+     at D = 120 and 132 beside ``cholesky_ex`` + ``cholesky_solve``.
+   - The fused matcher bit for bit equal to the plain matcher
+     (``match_descriptors_plain``) on planted cases (row and column ties,
+     fully masked rows and columns, invalid keypoints and landmarks) and at
+     the three matchers' shapes with random masks, ratio 0 and 0.8, mutual
+     on and off; timed beside the distance-matrix kernel + ``match()``.
 3. Slice: S=8 states, 512 landmark slots (256 live), 4096 observation
    slots, two 752x480 cameras, K=400 keypoints per camera, 10 LM
    iterations, float32, with depth factors on every state and sonar-range
    factors on three. The LM loop runs once under the sync debug mode that
    raises on a host synchronisation. Five frames (distinct seeds) through
    ``BackendStep``, with launch counts reset just before and read just
-   after; per frame:
-   both kernels launched, outputs finite, cost reduced with accepted
-   steps, positions closer to the truth, most true associations matched
-   and none wrongly, and the same step with the plain versions on the card
+   after; per frame: B1 and the fused matcher launched (the distance
+   matrix not), outputs finite, cost reduced with accepted steps,
+   positions closer to the truth, most true associations matched and
+   none wrongly, and the same step with the plain versions on the card
    agreeing (identical matches; cost within 1%, positions within 5 mm:
    f32 LM steps carry the solvers' rounding and the run-dependent order of
    CUDA index_add_ into mm-level differences, printed beside a rerun's).
@@ -38,8 +56,12 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
    keypoints per camera, S=8, 10 LM iterations, depth and sonar), float32,
    on the port's synthetic sequence: start-from-rest trajectory, 10 Hz for
    3 s (29 frames), depth and sonar events, rendered on the card before the
-   run. B2 first on the first frame's own descriptors as the stereo matcher
-   pairs them, exactly equal to its plain version. Then at a fixed 10 LM
+   run. First B2 on the first frames' own descriptors: the distance matrix
+   and the fused matcher as the stereo matcher pairs them, and the fused
+   matcher as the temporal matcher pairs the first two frames under its
+   optical-flow mask; then the fused matcher against the plain one on every
+   matcher call of the engine's first 8 frames, with the engine's real
+   inputs (the map matcher's gating mask). Then at a fixed 10 LM
    iterations per frame (``time_limit`` 0; the config's 35 ms budget
    follows the wall clock) under deterministic CUDA algorithms: kernels,
    plain versions, kernels again. The rerun must repeat the kernel run
@@ -51,7 +73,8 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
    read just after), kernels, plain versions. Checks, on every run: a
    result for every frame, median tracked keypoints >= 20, the window
    filled and marginalized, a keyframe export with the ABI keys, finite
-   landmark covariances, both kernels launched (none in the plain runs),
+   landmark covariances, B1 and the fused matcher launched and the
+   distance matrix not (no kernel in the plain runs),
    and an SE(3)-aligned ATE within ATE_FACTOR x the JAX engine's own ATE on
    the same events at the fixed iteration count (CPU, float32;
    tools/engine_ate_reference.py): 1.5 x for the fixed-count runs, 2 x
@@ -78,7 +101,8 @@ from svin_tpu_torch.estimator import WindowConfig, optimize
 from svin_tpu_torch.kinematics import Transformation
 from svin_tpu_torch.evaluation import ate_rmse
 from svin_tpu_torch.ops import cuda_lib, hamming, solve
-from svin_tpu_torch.pipeline import BackendStep, VioEngine, load_config, run_events, synthetic_sequence
+from svin_tpu_torch.pipeline import (BackendStep, VioEngine, load_config, programs, run_events,
+                                     synthetic_sequence)
 from svin_tpu_torch.utils import Timing
 
 N_FRAMES = 5
@@ -104,24 +128,113 @@ STAGES = ("2.0 frame_total", "2.1 detect_describe", "2.1.2 detect_fetch", "2.4 m
           "3.1 optimization", "3.1.1 opt_dispatch", "3.1.2 opt_fetch", "3.2 kf_export")
 
 
+# the plain versions of the kernels, as an engine's or a backend step's options
+PLAIN = dict(solve=solve.solve_spd_plain, matcher=hamming.match_descriptors_plain)
+# every kernel wrapper's launch count; the main path runs B1 and the fused
+# matcher, and no longer the distance matrix (kept for loop-closure
+# retrieval, held to its plain version and timed in the kernel phase)
+KERNELS = {"spd_solve_chol": solve.spd_solve_chol, "hamming_match": hamming.match_descriptors_cuda,
+           "hamming_matrix": hamming.hamming_matrix_cuda}
+ON_PATH = ("spd_solve_chol", "hamming_match")
+
+
+def reset_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in KERNELS.items()}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def event_ms(fn, runs: int = 100, warmup: int = 10) -> float:
-    """Median over ``runs`` of one call's device time (CUDA events)."""
+# H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s, float32 outside the
+# tensor cores 67 TFLOP/s; the bounds below use them
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+TIMED_LAUNCHES = 200
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple:
+    """(least time in ms, what bounds it): the larger of the bytes over the
+    memory rate and the operations over the float32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_ms(fn, n: int = TIMED_LAUNCHES, warmup: int = 10) -> tuple:
+    """(device ms per call, host µs per call) of ``fn``.
+
+    Host: ``time.perf_counter`` over ``n`` calls, the synchronize after them
+    not counted. Device: one event, ``n`` calls back to back on the stream,
+    a second event, then synchronize and divide. A spin kernel
+    (``torch.cuda._sleep``) ahead of the first event keeps the card busy
+    while the host enqueues the calls, so the events time the card working
+    through a full queue, not the host's dispatch; a function of many small
+    launches can still fill the launch queue and read host-bound."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(4e9, 1.5 * host_s * 2.0e9 + 1e6)))  # cycles, ~2 GHz SM clock
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n, 1e6 * host_s / n
+
+
+def in_turns(fns: dict, rounds: int = 3) -> dict:
+    """``device_ms`` of every function, in turns (the dict's order, repeated
+    ``rounds`` times); the median per function of device ms and host µs."""
+    got = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            got[k].append(device_ms(fn))
+    return {k: (statistics.median(m for m, _ in v), statistics.median(h for _, h in v))
+            for k, v in got.items()}
+
+
+def traced_ms(fn, n: int = 50, tries: int = 4) -> tuple:
+    """(device ms per call, device operations per call) of ``fn`` from a
+    ``torch.profiler`` trace of ``n`` calls: the summed durations of the
+    kernels, copies and fills the card ran for it, the gaps between them not
+    counted. A check on ``device_ms`` for a function of several launches,
+    whose event time reads the host's dispatch once the launch queue is
+    full. A trace can miss device events, so traces are taken until two in
+    a row hold the same number of them, a multiple of ``n`` (at most
+    ``tries``); (None, 0) if none do."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    last = None
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        count = len(on_card)
+        if count and count % n == 0 and count == last:
+            return sum(e.time_range.elapsed_us() for e in on_card) / n / 1e3, count / n
+        last = count
+    return None, 0
+
+
+def traced_text(ms, ops) -> str:
+    return "not measured (no two traces agreed)" if ms is None else (
+        f"{ms:.5f} ms in {ops:g} device operations")
 
 
 def equilibrated_spd(rng, D, dev):
@@ -134,15 +247,51 @@ def equilibrated_spd(rng, D, dev):
             torch.as_tensor(b, dtype=torch.float32, device=dev))
 
 
+def cholesky_library(H, b):
+    """One library call per factor and solve: ``cholesky_ex`` +
+    ``cholesky_solve`` (cuSOLVER), the yardstick for B1."""
+    L, _ = torch.linalg.cholesky_ex(H)
+    return torch.cholesky_solve(b[..., None], L)
+
+
+def pm1_bits(words: torch.Tensor) -> torch.Tensor:
+    """(..., N, W) int32 words -> (..., N, 32 W) float16 in {-1, +1}, bit k
+    of word w at column 32 w + k (the JAX package's ``unpack_bits_pm1``)."""
+    bits = (words[..., None] >> torch.arange(32, device=words.device, dtype=torch.int32)) & 1
+    return (2 * bits - 1).to(torch.float16).flatten(-2)
+
+
+def unfused_match(a, b, va, vb, mask, **kw):
+    """The unfused matcher on the card: the B2 distance-matrix kernel, then
+    the eager selection (``match``) on the matrix."""
+    m = va[..., :, None] & vb[..., None, :]
+    if mask is not None:
+        m = m & mask
+    return hamming.match(hamming.hamming_matrix_cuda(a, b), m, **kw)
+
+
+def check_matcher(args, what: str, **kw) -> int:
+    """The fused matcher bit for bit against the plain one on ``args``;
+    returns the number of valid matches."""
+    got = hamming.match_descriptors_cuda(*args, **kw)
+    want = hamming.match_descriptors_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if not (g.dtype == w.dtype and torch.equal(g, w)):
+            raise AssertionError(f"fused matcher != plain: {what} {kw}")
+    return int(want.valid.sum())
+
+
 def kernel_phase(dev) -> dict:
     rng = np.random.default_rng(0)
     words = lambda shape: torch.as_tensor(  # noqa: E731
         rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32).view(np.int32),
         device=dev)
+    out = {}
 
-    # B2: exact at the three matchers' shapes (map: both cameras' keypoints
-    # against the landmark table; stereo and temporal: one camera's
-    # keypoints against another's, 2-D) and at ragged ones
+    # ---- B2, the distance matrix: exact at the three matchers' shapes (map:
+    # both cameras' keypoints against the landmark table; stereo and
+    # temporal: one camera's keypoints against another's, 2-D) and ragged ones
     for a_shape, b_shape in (((2, K, 8), (512, 8)), ((K, 8), (K, 8)), ((1, 1, 8), (1, 8)),
                              ((1, 129, 8), (257, 8)), ((1, K, 8), (1, 8)), ((129, 8), (257, 8))):
         a, b = words(a_shape), words(b_shape)
@@ -151,36 +300,128 @@ def kernel_phase(dev) -> dict:
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"hamming kernel != plain at {a_shape}x{b_shape}")
-    a, b = words((2, K, 8)), words((512, 8))
-    ham_err = int((hamming.hamming_matrix(a, b) - hamming.hamming_matrix_plain(a, b)).abs().max())
-    ham_ms = event_ms(lambda: hamming.hamming_matrix(a, b))
-    ham_plain_ms = event_ms(lambda: hamming.hamming_matrix_plain(a, b))
-    log(f"B2 hamming (2,{K},8)x(512,8) (map): exact; kernel {ham_ms:.4f} ms, plain "
-        f"{ham_plain_ms:.4f} ms")
-    a, b = words((K, 8)), words((K, 8))
-    log(f"B2 hamming ({K},8)x({K},8) (stereo, temporal): exact; kernel "
-        f"{event_ms(lambda: hamming.hamming_matrix(a, b)):.4f} ms, plain "
-        f"{event_ms(lambda: hamming.hamming_matrix_plain(a, b)):.4f} ms")
+    ham = {}
+    for name, a_shape, b_shape in (("map", (2, K, 8), (512, 8)), ("400x400", (K, 8), (K, 8))):
+        a, b = words(a_shape), words(b_shape)
+        pa, pbt = pm1_bits(a).reshape(-1, 256), pm1_bits(b).T.contiguous()
+        lib = lambda pa=pa, pbt=pbt: torch.matmul(pa, pbt)  # noqa: E731
+        d = hamming.hamming_matrix(a, b)
+        err = int((d - hamming.hamming_matrix_plain(a, b)).abs().max())
+        lib_d = ((256 - lib().float()) / 2).to(torch.int32).reshape(d.shape)
+        if not torch.equal(lib_d, d):
+            raise AssertionError(f"fp16 +-1 matmul != Hamming distances at {name}")
+        t = in_turns({"kernel": lambda a=a, b=b: hamming.hamming_matrix(a, b), "library": lib,
+                      "plain": lambda a=a, b=b: hamming.hamming_matrix_plain(a, b)})
+        n_pairs = d.numel()
+        bms, by = bound((a.numel() + b.numel() + n_pairs) * 4, n_pairs * 8)
+        ham[name] = dict(max_abs_err=err, ms=t["kernel"][0], host_us=t["kernel"][1],
+                         plain_ms=t["plain"][0], library_ms=t["library"][0], bound_ms=bms,
+                         bound_by=by)
+        log(f"B2 hamming_matrix {a_shape}x{b_shape} ({name}): exact; device ms per launch kernel "
+            f"{t['kernel'][0]:.5f}, library (fp16 matmul of unpacked +-1 bits, unpacking "
+            f"excluded) {t['library'][0]:.5f}, plain {t['plain'][0]:.5f}; host us per call "
+            f"kernel {t['kernel'][1]:.1f}, library {t['library'][1]:.1f}, plain "
+            f"{t['plain'][1]:.1f}; bound {bms * 1e3:.4f} us ({by})")
+    out["hamming_matrix"] = ham["map"]
 
-    # B1: stated tolerance on equilibrated SPD systems
+    # ---- B1: the blocked-Cholesky kernel on equilibrated SPD systems
     for D in (7, SOLVE_D, 132):
         H, rhs = equilibrated_spd(rng, D, dev)
         x = solve.solve_spd(H, rhs)
         ref = solve.solve_spd_plain(H, rhs)
         res = float(torch.linalg.norm(H @ x - rhs) / torch.linalg.norm(rhs))
         dist = float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
-        log(f"B1 solve D={D}: relative residual {res:.3e}, relative distance to plain {dist:.3e}")
+        log(f"B1 spd_solve_chol D={D}: relative residual {res:.3e}, relative distance to plain "
+            f"{dist:.3e}")
         if not (res <= 1e-4 and dist <= 1e-3):
-            raise AssertionError(f"spd_solve_gj out of tolerance at D={D}")
-        if D == SOLVE_D:
-            solve_err = float((x - ref).abs().max())
-            solve_ms = event_ms(lambda: solve.solve_spd(H, rhs))
-            solve_plain_ms = event_ms(lambda: solve.solve_spd_plain(H, rhs))
-    log(f"B1 solve D={SOLVE_D}: kernel {solve_ms:.4f} ms, plain {solve_plain_ms:.4f} ms")
-    return {
-        "spd_solve_gj": dict(max_abs_err=solve_err, ms=solve_ms, plain_ms=solve_plain_ms),
-        "hamming_matrix": dict(max_abs_err=ham_err, ms=ham_ms, plain_ms=ham_plain_ms),
-    }
+            raise AssertionError(f"spd_solve_chol out of tolerance at D={D}")
+    Hs, bs = zip(*(equilibrated_spd(rng, SOLVE_D, dev) for _ in range(4)))
+    Hb, bb = torch.stack(Hs), torch.stack(bs)
+    Hb[2] = -Hb[2]  # not positive definite
+    x, ref = solve.spd_solve_chol(Hb, bb), solve.solve_spd_plain(Hb, bb)
+    ok = [0, 1, 3]
+    if not (bool(torch.isnan(x[2]).all()) and bool(torch.isnan(ref[2]).all())
+            and not bool(torch.isnan(x[ok]).any())
+            and float(torch.linalg.norm(x[ok] - ref[ok]) / torch.linalg.norm(ref[ok])) <= 1e-3):
+        raise AssertionError("spd_solve_chol batched: a non-SPD system is not all NaN, or the "
+                             "others are out of tolerance")
+    log(f"B1 spd_solve_chol batched (4, {SOLVE_D}, {SOLVE_D}): the non-SPD system all NaN (as "
+        f"plain), the other three within tolerance")
+    chol = {}
+    for D in (SOLVE_D, 132):
+        H, rhs = equilibrated_spd(rng, D, dev)
+        err = float((solve.solve_spd(H, rhs) - solve.solve_spd_plain(H, rhs)).abs().max())
+        t = in_turns({"kernel": lambda H=H, r=rhs: solve.solve_spd(H, r),
+                      "library": lambda H=H, r=rhs: cholesky_library(H, r),
+                      "plain": lambda H=H, r=rhs: solve.solve_spd_plain(H, r)})
+        # bytes: the lower triangle of H (all an SPD solve needs, and all the
+        # kernel reads), b and x
+        bms, by = bound((D * (D + 1) // 2 + 2 * D) * 4, D**3 / 3 + 2 * D * D)
+        tr_k = traced_ms(lambda H=H, r=rhs: solve.solve_spd(H, r))
+        tr_l = traced_ms(lambda H=H, r=rhs: cholesky_library(H, r))
+        chol[D] = dict(max_abs_err=err, ms=t["kernel"][0], host_us=t["kernel"][1],
+                       plain_ms=t["plain"][0], library_ms=t["library"][0], bound_ms=bms,
+                       bound_by=by, traced_ms=tr_k[0], library_traced_ms=tr_l[0],
+                       library_ops_per_call=tr_l[1])
+        log(f"B1 solve D={D}: device ms per launch Cholesky kernel {t['kernel'][0]:.5f}, library "
+            f"(cholesky_ex + cholesky_solve) {t['library'][0]:.5f}, plain {t['plain'][0]:.5f}; "
+            f"host us per call {t['kernel'][1]:.1f}, {t['library'][1]:.1f}, {t['plain'][1]:.1f}; "
+            f"bound {bms * 1e3:.5f} us ({by}); max |x - plain| {err:.2e}; traced device time "
+            f"per call: kernel {traced_text(*tr_k)}, library {traced_text(*tr_l)}")
+    out["spd_solve_chol"] = dict(chol[SOLVE_D], ms_d132=chol[132]["ms"],
+                                 library_ms_d132=chol[132]["library_ms"],
+                                 bound_ms_d132=chol[132]["bound_ms"],
+                                 traced_ms_d132=chol[132]["traced_ms"],
+                                 library_traced_ms_d132=chol[132]["library_traced_ms"])
+
+    # ---- the fused matcher: bit for bit against the plain matcher with
+    # every rule planted (problems.matcher_case: ties, fully masked rows and
+    # columns, invalid keypoints and landmarks), then at the three matchers'
+    # shapes with random masks, ratio 0 and 0.8, mutual on and off
+    for cams, na, nb in ((2, 40, 50), (2, 37, 700), (1, 9, 12)):
+        args = tuple(torch.as_tensor(x, device=dev)
+                     for x in problems.matcher_case(rng, cams=cams, na=na, nb=nb))
+        for ratio in (0.0, 0.8):
+            for mutual in (True, False):
+                check_matcher(args, f"planted ({cams},{na})x({nb})", ratio=ratio, mutual=mutual)
+    fused = {}
+    for kind in problems.MATCHER_SHAPES:
+        args = problems.matcher_inputs(kind, rng, dev)
+        n_valid = [check_matcher(args, kind, ratio=r, mutual=m)
+                   for r in (0.0, 0.8) for m in (True, False)]
+        got = hamming.match_descriptors_cuda(*args)
+        want = unfused_match(*args)
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"fused matcher != distance-matrix kernel + match at {kind}")
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in
+                  zip(got, hamming.match_descriptors_plain(*args)))
+        t = in_turns({"kernel": lambda args=args: hamming.match_descriptors_cuda(*args),
+                      "unfused": lambda args=args: unfused_match(*args),
+                      "plain": lambda args=args: hamming.match_descriptors_plain(*args)})
+        tr_k = traced_ms(lambda args=args: hamming.match_descriptors_cuda(*args))
+        tr_u = traced_ms(lambda args=args: unfused_match(*args))
+        a, b, va, vb, mask = args
+        n_rows = va.numel()
+        n_bytes = (a.numel() + b.numel()) * 4 + va.numel() + vb.numel() + n_rows * 9 + (
+            0 if mask is None else mask.numel())
+        bms, by = bound(n_bytes, n_rows * b.shape[-2] * 8)
+        fused[kind] = dict(max_abs_err=err, ms=t["kernel"][0], host_us=t["kernel"][1],
+                           plain_ms=t["plain"][0], library_ms=None, bound_ms=bms, bound_by=by,
+                           unfused_ms=t["unfused"][0], unfused_host_us=t["unfused"][1],
+                           traced_ms=tr_k[0], unfused_traced_ms=tr_u[0],
+                           unfused_ops_per_call=tr_u[1])
+        log(f"fused matcher {kind} {tuple(a.shape)}x{tuple(b.shape)} mask "
+            f"{None if mask is None else tuple(mask.shape)}: bit-exact vs plain (ratio 0/0.8 x "
+            f"mutual on/off; valid matches {n_valid}); device ms per call fused "
+            f"{t['kernel'][0]:.5f}, distance-matrix kernel + match() {t['unfused'][0]:.5f}, "
+            f"plain {t['plain'][0]:.5f}; host us per call {t['kernel'][1]:.1f}, "
+            f"{t['unfused'][1]:.1f}, {t['plain'][1]:.1f}; bound {bms * 1e3:.4f} us ({by}); traced "
+            f"device time per call: fused {traced_text(*tr_k)}, unfused {traced_text(*tr_u)}")
+    out["hamming_match"] = dict(fused["map"], **{f"{k}_{f}": fused[k][f] for k in ("stereo", "temporal")
+                                                 for f in ("ms", "unfused_ms", "bound_ms",
+                                                           "traced_ms", "unfused_traced_ms")})
+    return out
 
 
 def make_case(seed: int, dev):
@@ -213,8 +454,7 @@ def slice_phase(dev) -> dict:
         f"obs live {[int(c['f'].reproj.valid.sum()) for c in cases]})")
     rig = cases[0]["rig"]
     step = BackendStep(rig, problems.IMU_PARAMS, CFG).to(dev)
-    plain = BackendStep(rig, problems.IMU_PARAMS, CFG, solve=solve.solve_spd_plain,
-                        hamming=hamming.hamming_matrix_plain).to(dev)
+    plain = BackendStep(rig, problems.IMU_PARAMS, CFG, **PLAIN).to(dev)
     c0 = cases[0]
     step(c0["w"], c0["f"], c0["frame"], CFG.max_iterations, c0["victim"])  # warm-up
     torch.cuda.synchronize()
@@ -227,17 +467,18 @@ def slice_phase(dev) -> dict:
     log("LM loop (10 iterations, B1 kernel) ran with no host synchronisation")
 
     # ---- the main path: counts from 0, read right after ----
-    solve.spd_solve_gj.launches = 0
-    hamming.hamming_matrix_cuda.launches = 0
+    reset_counts()
     outs = []
     for i, c in enumerate(cases):
-        n_s, n_h = solve.spd_solve_gj.launches, hamming.hamming_matrix_cuda.launches
+        before = read_counts()
         outs.append(step(c["w"], c["f"], c["frame"], CFG.max_iterations, c["victim"]))
         torch.cuda.synchronize()
-        if not (solve.spd_solve_gj.launches > n_s and hamming.hamming_matrix_cuda.launches > n_h):
-            raise AssertionError(f"frame {i}: a kernel was not launched")
-    launches = {"spd_solve_gj": solve.spd_solve_gj.launches,
-                "hamming_matrix": hamming.hamming_matrix_cuda.launches}
+        after = read_counts()
+        if not all(after[k] > before[k] for k in ON_PATH):
+            raise AssertionError(f"frame {i}: a kernel was not launched: {before} -> {after}")
+    launches = read_counts()
+    if launches["hamming_matrix"]:
+        raise AssertionError(f"the distance-matrix kernel ran on the main path: {launches}")
     log(f"main path launches over {N_FRAMES} frames: {launches}")
 
     for i, (c, o) in enumerate(zip(cases, outs)):
@@ -320,12 +561,10 @@ def drive_engine(name, cfg, events, gt, dev, verbose=True, **kernels) -> dict:
     what came out (with ``verbose``, per frame and per stage)."""
     engine = TimedEngine(VioEngine(cfg, device=dev, **kernels))
     Timing.reset()
-    solve.spd_solve_gj.launches = 0
-    hamming.hamming_matrix_cuda.launches = 0
+    reset_counts()
     results = run_events(engine, events)
     torch.cuda.synchronize()
-    launches = {"spd_solve_gj": solve.spd_solve_gj.launches,
-                "hamming_matrix": hamming.hamming_matrix_cuda.launches}
+    launches = read_counts()
     eng = engine.engine
     n_frames = sum(ev.kind == "frame" for ev in events)
     if len(results) != n_frames:
@@ -368,21 +607,71 @@ def drive_engine(name, cfg, events, gt, dev, verbose=True, **kernels) -> dict:
     return dict(launches=launches, ate=ate, frame_ms=ms, results=results)
 
 
-def frame_descriptor_check(cfg, frame, dev) -> None:
-    """B2 on one rendered frame's own descriptors, computed by the engine's
-    frontend and matched as the stereo matcher matches them: camera 0's
-    (K,8) words against camera 1's, exactly equal to the plain version."""
+def frame_descriptor_check(cfg, frames, dev) -> None:
+    """B2 and the fused matcher on rendered frames' own descriptors,
+    computed by the engine's frontend: the first frame's camera 0 against
+    its camera 1 as the stereo matcher pairs them (the distance matrix
+    exactly equal to its plain version, the fused matcher bit for bit equal
+    to the plain matcher), and camera 0 of the first frame against camera 0
+    of the second under the temporal matcher's optical-flow mask."""
     eng = VioEngine(cfg, device=dev)
     level = Transformation(r=np.zeros(3), q=np.array([0.0, 0.0, 0.0, 1.0]))
-    _, descs, valids, *_ = eng._detect_describe(frame.images, level)
-    a, b = (torch.as_tensor(d, device=dev) for d in descs[:2])
+    uv0, desc0, val0, *_ = eng._detect_describe(frames[0].images, level)
+    uv1, desc1, val1, *_ = eng._detect_describe(frames[1].images, level)
+    on = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    a, b = on(desc0[0]), on(desc0[1])
     got = hamming.hamming_matrix(a, b)
     want = hamming.hamming_matrix_plain(a, b)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError(f"hamming kernel != plain on frame descriptors {tuple(a.shape)}x{tuple(b.shape)}")
-    log(f"B2 hamming on the first frame's descriptors {tuple(a.shape)}x{tuple(b.shape)} "
-        f"({int(valids[0].sum())} and {int(valids[1].sum())} valid keypoints): exact")
+    stereo = check_matcher((a, b, on(val0[0]), on(val0[1]), None), "stereo, frame 0", mutual=True)
+    mask = programs.flow_mask(on(uv0[0]), on(uv1[0]), eng._diag[0])
+    temporal = check_matcher((a, on(desc1[0]), on(val0[0]), on(val1[0]), mask),
+                             "temporal, frames 0-1", mutual=True)
+    log(f"B2 on the first frame's descriptors {tuple(a.shape)}x{tuple(b.shape)} "
+        f"({int(val0[0].sum())} and {int(val0[1].sum())} valid keypoints): distance matrix "
+        f"exact; fused matcher bit-exact as the stereo matcher ({stereo} matches) and as the "
+        f"temporal matcher against the second frame under the flow mask ({int(mask.sum())} of "
+        f"{mask.numel()} pairs kept; {temporal} matches)")
+
+
+class CheckedMatcher:
+    """An engine ``matcher`` that runs the fused kernel and the plain
+    matcher on every call with the engine's real inputs (the map matcher's
+    gating mask from ``gate_match_all``, the stereo and temporal pairs),
+    requires them bit for bit equal, and returns the kernel's result."""
+
+    def __init__(self):
+        self.calls = {"map": 0, "stereo": 0, "temporal": 0}
+        self.masks_kept = []
+
+    def __call__(self, a, b, va, vb, mask=None, **kw):
+        kind = "map" if a.dim() == 3 else "stereo" if mask is None else "temporal"
+        self.calls[kind] += 1
+        if mask is not None:
+            self.masks_kept.append(float(mask.float().mean()))
+        check_matcher((a, b, va, vb, mask), f"engine {kind} call {self.calls[kind]}", **kw)
+        return hamming.match_descriptors_cuda(a, b, va, vb, mask, **kw)
+
+
+def real_mask_check(cfg, events, dev, n_frames: int = 8) -> None:
+    """The fused matcher against the plain one on every matcher call of the
+    engine's first ``n_frames`` frames (fixed LM iteration count)."""
+    first = []
+    for ev in events:
+        if ev.kind == "frame" and sum(e.kind == "frame" for e in first) == n_frames:
+            break
+        first.append(ev)
+    checked = CheckedMatcher()
+    run_events(VioEngine(dataclasses.replace(cfg, time_limit=0.0), device=dev, matcher=checked),
+               first)
+    torch.cuda.synchronize()
+    if not (checked.calls["map"] >= 1 and checked.calls["stereo"] >= 1):
+        raise AssertionError(f"engine matcher calls {checked.calls}")
+    log(f"fused matcher bit-exact vs plain on every matcher call of the engine's first {n_frames} "
+        f"frames: {checked.calls} calls, masks keeping "
+        f"{min(checked.masks_kept):.4f}-{max(checked.masks_kept):.4f} of their pairs")
 
 
 def compare_runs(a: dict, b: dict) -> dict:
@@ -424,8 +713,8 @@ def engine_phase(dev) -> dict:
     cam = cfg.cameras[0]
     log(f"engine input: {len(frames)} frames of {len(frames[0].images)} x {cam.width}x{cam.height}, "
         f"{len(events)} events, rendered in {time.perf_counter() - t0:.1f} s")
-    plain_kw = dict(solve=solve.solve_spd_plain, hamming=hamming.hamming_matrix_plain)
-    frame_descriptor_check(cfg, frames[0], dev)
+    frame_descriptor_check(cfg, frames, dev)
+    real_mask_check(cfg, events, dev)
 
     # a fixed LM iteration count (time_limit 0: the config's 35 ms budget
     # follows the wall clock) and deterministic CUDA algorithms (index_add_
@@ -439,7 +728,7 @@ def engine_phase(dev) -> dict:
     try:
         k_fix = drive_engine("kernels, 10 LM iterations", fixed, events, gt, dev, verbose=False)
         p_fix = drive_engine("plain, 10 LM iterations", fixed, events, gt, dev, verbose=False,
-                             **plain_kw)
+                             **PLAIN)
         k_fix2 = drive_engine("kernels again, 10 LM iterations", fixed, events, gt, dev,
                               verbose=False)
     finally:
@@ -461,12 +750,14 @@ def engine_phase(dev) -> dict:
 
     # at the config's budget, in turns: plain, kernels (the main path: its
     # launch counts are the ones reported), kernels, plain
-    plain = drive_engine("plain", cfg, events, gt, dev, **plain_kw)
+    plain = drive_engine("plain", cfg, events, gt, dev, **PLAIN)
     out = drive_engine("kernels", cfg, events, gt, dev)
     again = drive_engine("kernels, again", cfg, events, gt, dev, verbose=False)
-    plain_again = drive_engine("plain, again", cfg, events, gt, dev, verbose=False, **plain_kw)
-    if not all(v > 0 for r in (out, again, k_fix, k_fix2) for v in r["launches"].values()):
-        raise AssertionError(f"engine: a kernel was not launched: {out['launches']}")
+    plain_again = drive_engine("plain, again", cfg, events, gt, dev, verbose=False, **PLAIN)
+    for r in (out, again, k_fix, k_fix2):
+        if not (all(r["launches"][k] > 0 for k in ON_PATH) and r["launches"]["hamming_matrix"] == 0):
+            raise AssertionError(f"engine: a kernel of the path was not launched, or the distance "
+                                 f"matrix was: {r['launches']}")
     if any(v for r in (plain, plain_again, p_fix) for v in r["launches"].values()):
         raise AssertionError("engine [plain]: a kernel was launched")
     k_ms, p_ms = out["frame_ms"] + again["frame_ms"], plain["frame_ms"] + plain_again["frame_ms"]
@@ -510,12 +801,15 @@ def main() -> int:
     log(f"launches summed over the backend-step and engine paths: {launches}")
 
     record = {"kernels": [
-        {"name": "spd_solve_gj", "route": "cuda", "source": "svin_tpu_torch/csrc/spd_solve_gj.cu",
-         "replaces": "svin_tpu/ops/solve.py:59", "launches": launches["spd_solve_gj"],
-         **timings["spd_solve_gj"]},
+        {"name": "spd_solve_chol", "route": "cuda", "source": "svin_tpu_torch/csrc/spd_solve_chol.cu",
+         "replaces": "svin_tpu/ops/solve.py:59", "launches": launches["spd_solve_chol"],
+         "shape": f"D={SOLVE_D}", **timings["spd_solve_chol"]},
+        {"name": "hamming_match", "route": "cuda", "source": "svin_tpu_torch/csrc/hamming_match.cu",
+         "replaces": "svin_tpu/ops/hamming.py:44", "launches": launches["hamming_match"],
+         "shape": f"(2,{K},8)x(512,8), mask (2,{K},512)", **timings["hamming_match"]},
         {"name": "hamming_matrix", "route": "cuda", "source": "svin_tpu_torch/csrc/hamming.cu",
          "replaces": "svin_tpu/ops/hamming.py:44", "launches": launches["hamming_matrix"],
-         **timings["hamming_matrix"]},
+         "on_main_path": False, "shape": f"(2,{K},8)x(512,8)", **timings["hamming_matrix"]},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -13,16 +13,18 @@ Layer map of the ported slice (the VIO backend's per-frame step):
   imu/          preintegration, propagation, IMU factor
   estimator/    window/factor tables, factors (reprojection, IMU, depth,
                 sonar, priors), LM + Schur solver, FEJ marginalization
-  ops/          3x3 closed forms and the two hand-written CUDA kernels:
-                the dense SPD solve (``ops/solve.py``) and the Hamming
-                distance matrix (``ops/hamming.py``), each with its plain
-                PyTorch version beside it
+  ops/          3x3 closed forms and the hand-written CUDA kernels: the
+                dense SPD solve (``ops/solve.py``, blocked Cholesky), the
+                Hamming distance matrix and the fused matcher
+                (``ops/hamming.py``), each with its plain PyTorch version
+                beside it
   pipeline/     the two per-frame device programs (projection-gated map
                 matching; optimize + marginalize + outlier prune) and the
                 ``BackendStep`` module that chains them
 
 Devices: every public entry reads its device from its input tensors or takes
-an explicit ``device``. A kernel wrapper launches its CUDA kernel for a CUDA
+an explicit ``device``; ``VioEngine`` runs on ``cuda`` unless the caller
+names another device. A kernel wrapper launches its CUDA kernel for a CUDA
 tensor and runs its plain version only for a CPU tensor.
 """
 

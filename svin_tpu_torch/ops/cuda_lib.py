@@ -1,10 +1,13 @@
 """Build-at-first-use and ctypes binding of the port's CUDA kernels.
 
-The sources in ``svin_tpu_torch/csrc/*.cu`` compile with ``nvcc`` into one
-shared library with a plain C interface::
+The sources in ``svin_tpu_torch/csrc/*.cu`` compile with ``nvcc``, one
+process per source, all started together, and link into one shared library
+with a plain C interface::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o svin_tpu_torch/_build/libsvin_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o _build/<name>.o csrc/<name>.cu    # each source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o svin_tpu_torch/_build/libsvin_kernels.so _build/*.o
 
 The build runs the first time a kernel is launched in a process (or when a
 source is newer than the library) and writes into ``svin_tpu_torch/_build/``;
@@ -29,10 +32,11 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libsvin_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
 
-NVCC_FLAGS = [
+COMPILE_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of this process's build
@@ -61,18 +65,36 @@ def _stale() -> bool:
 
 
 def build() -> float:
-    """Compile the kernels into LIB_PATH; returns the build's wall seconds."""
+    """Compile every source into an object, all ``nvcc`` processes started
+    together, then link them into LIB_PATH; returns the build's wall
+    seconds."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
+    objs, procs = [], []
+    for src in sources():
+        obj = os.path.join(BUILD_DIR, os.path.basename(src)[:-3] + ".o")
+        cmd = [_nvcc(), *COMPILE_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True)))
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    link = [_nvcc(), *LINK_FLAGS, "-o", tmp, *objs]
+    failed = []
     with open(BUILD_LOG, "w") as log:
-        log.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+        for cmd, proc in procs:
+            out = proc.communicate()[0]
+            log.write(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out[-4000:]}")
+        if not failed:
+            res = subprocess.run(link, capture_output=True, text=True)
+            log.write(" ".join(link) + "\n" + res.stdout + res.stderr)
+            if res.returncode != 0:
+                failed.append(f"link ({res.returncode}):\n{res.stderr[-4000:]}")
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, LIB_PATH)
     return time.perf_counter() - t0
 
@@ -86,12 +108,17 @@ def load() -> ctypes.CDLL:
         build_seconds = build()
     lib = ctypes.CDLL(LIB_PATH)
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.spd_solve_gj.restype = ci
-    lib.spd_solve_gj.argtypes = [vp, vp, vp, ci, ci, vp]
     lib.hamming_matrix.restype = ci
     lib.hamming_matrix.argtypes = [vp, vp, vp, ci, ci, ci, ci, cll, cll, vp]
     lib.hamming_max_words.restype = ci
     lib.hamming_max_words.argtypes = []
+    lib.spd_solve_chol.restype = ci
+    lib.spd_solve_chol.argtypes = [vp, vp, vp, ci, ci, vp]
+    lib.hamming_match.restype = ci
+    lib.hamming_match.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, cll, cll, ci, ci,
+                                  ctypes.c_float, ci, vp, vp, vp, vp, vp]
+    lib.hamming_match_max_words.restype = ci
+    lib.hamming_match_max_words.argtypes = []
     lib.svin_cuda_error_string.restype = ctypes.c_char_p
     lib.svin_cuda_error_string.argtypes = [ci]
     _lib = lib

@@ -1,7 +1,9 @@
 """Hamming-distance matching: XOR + popcount distance matrix (hand-written
 CUDA kernel ``csrc/hamming.cu`` with its plain PyTorch version beside it),
 best-match selection with distance threshold, ratio test and mutual
-consistency.
+consistency, and the fused matcher (hand-written CUDA kernel
+``csrc/hamming_match.cu``: distances, mask and selection in one pass) that
+the engine's three matchers run on the card.
 
 Counterpart of the JAX package's ``ops/hamming.py``. Descriptors are packed 32-bit
 words held as **int32** (bit-identical to the JAX package's uint32 words:
@@ -38,8 +40,6 @@ def hamming_matrix_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel: a (Na, W) or (B, Na, W), b (Nb, W) (shared by the
     batch) or (B, Nb, W), int32 contiguous on one CUDA device, W ≤ 8.
     Launches on the current stream, does not synchronise."""
-    if not (a.is_cuda and b.is_cuda and a.device == b.device):
-        raise ValueError(f"hamming_matrix_cuda needs CUDA tensors on one device, got {a.device}, {b.device}")
     if a.dtype != torch.int32 or b.dtype != torch.int32:
         raise TypeError(f"hamming_matrix_cuda takes int32 words, got {a.dtype}, {b.dtype}")
     if a.dim() not in (2, 3) or b.dim() not in (2, 3) or a.shape[-1] != b.shape[-1]:
@@ -48,6 +48,8 @@ def hamming_matrix_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"hamming_matrix_cuda batch mismatch: a {tuple(a.shape)}, b {tuple(b.shape)}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("hamming_matrix_cuda needs contiguous a and b")
+    if not (a.is_cuda and b.is_cuda and a.device == b.device):
+        raise ValueError(f"hamming_matrix_cuda needs CUDA tensors on one device, got {a.device}, {b.device}")
     lib = cuda_lib.load()
     W = a.shape[-1]
     if W < 1 or W > lib.hamming_max_words():
@@ -124,6 +126,95 @@ def match(
     )
 
 
+def match_descriptors_plain(
+    desc_a: torch.Tensor,
+    desc_b: torch.Tensor,
+    valid_a: torch.Tensor,
+    valid_b: torch.Tensor,
+    mask: torch.Tensor = None,
+    max_distance: int = 60,
+    ratio: float = 0.0,
+    mutual: bool = True,
+) -> MatchResult:
+    """Distance matrix + selection, the plain version: ``match`` of
+    ``hamming_matrix_plain`` under the mask valid_a ⊗ valid_b (& ``mask``).
+    ``desc_a`` may carry a batch dim (B, Na, W) against a shared ``desc_b``
+    (Nb, W) or a batch of them (B, Nb, W)."""
+    d = hamming_matrix_plain(desc_a, desc_b)
+    m = valid_a[..., :, None] & valid_b[..., None, :]
+    if mask is not None:
+        m = m & mask
+    return match(d, m, max_distance=max_distance, ratio=ratio, mutual=mutual)
+
+
+def match_descriptors_cuda(
+    desc_a: torch.Tensor,
+    desc_b: torch.Tensor,
+    valid_a: torch.Tensor,
+    valid_b: torch.Tensor,
+    mask: torch.Tensor = None,
+    max_distance: int = 60,
+    ratio: float = 0.0,
+    mutual: bool = True,
+) -> MatchResult:
+    """The fused CUDA matcher (``csrc/hamming_match.cu``): bit for bit
+    ``match_descriptors_plain``, without the distance matrix in device
+    memory. ``desc_a`` (Na, W) or (B, Na, W) int32, ``desc_b`` (Nb, W)
+    (shared by the batch) or (B, Nb, W), ``valid_a`` ``desc_a.shape[:-1]``
+    bool, ``valid_b`` (Nb,) or (B, Nb) bool, ``mask`` ``desc_a.shape[:-1] +
+    (Nb,)`` bool or None; all contiguous on one CUDA device, W ≤ 8, Nb ≥ 1.
+    Launches on the current stream (a scratch fill and two kernels when
+    ``mutual``, one kernel when not), does not synchronise."""
+    a, b, va, vb = desc_a, desc_b, valid_a, valid_b
+    tensors = (a, b, va, vb) + (() if mask is None else (mask,))
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError(f"match_descriptors_cuda takes int32 words, got {a.dtype}, {b.dtype}")
+    if any(t.dtype != torch.bool for t in tensors[2:]):
+        raise TypeError("match_descriptors_cuda takes bool valid flags and mask")
+    if a.dim() not in (2, 3) or b.dim() not in (2, 3) or a.shape[-1] != b.shape[-1]:
+        raise ValueError(f"match_descriptors_cuda shapes: a {tuple(a.shape)}, b {tuple(b.shape)}")
+    batched_b = b.dim() == 3
+    if batched_b and (a.dim() != 3 or b.shape[0] != a.shape[0]):
+        raise ValueError(f"match_descriptors_cuda batch mismatch: a {tuple(a.shape)}, b {tuple(b.shape)}")
+    Na, Nb, W = a.shape[-2], b.shape[-2], a.shape[-1]
+    if va.shape != a.shape[:-1] or vb.shape not in ((Nb,), b.shape[:-1]):
+        raise ValueError(f"match_descriptors_cuda valid shapes: {tuple(va.shape)}, {tuple(vb.shape)}")
+    if mask is not None and mask.shape != a.shape[:-1] + (Nb,):
+        raise ValueError(f"match_descriptors_cuda mask shape {tuple(mask.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("match_descriptors_cuda needs contiguous inputs")
+    if Nb < 1:
+        raise ValueError("match_descriptors_cuda: no descriptors to match against")
+    if not all(t.is_cuda and t.device == a.device for t in tensors):
+        raise ValueError(f"match_descriptors_cuda needs CUDA tensors on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    lib = cuda_lib.load()
+    if W < 1 or W > lib.hamming_match_max_words():
+        raise ValueError(f"match_descriptors_cuda: W={W} words not supported")
+    batch = a.shape[0] if a.dim() == 3 else 1
+    idx = torch.empty(a.shape[:-1], dtype=torch.int32, device=a.device)
+    dist = torch.empty_like(idx)
+    valid = torch.empty(a.shape[:-1], dtype=torch.bool, device=a.device)
+    if idx.numel() == 0:
+        return MatchResult(idx_b=idx, dist=dist, valid=valid)
+    col_best = torch.empty((batch, Nb) if mutual else (1,), dtype=torch.int64, device=a.device)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.hamming_match(
+            ptr(a), ptr(b), ptr(va), ptr(vb), ctypes.c_void_p(None if mask is None else mask.data_ptr()),
+            batch, Na, Nb, W, Nb * W if batched_b else 0, Nb if vb.dim() == 2 else 0,
+            int(max_distance), int(ratio > 0.0), float(ratio), int(bool(mutual)),
+            ptr(col_best), ptr(idx), ptr(dist), ptr(valid), ctypes.c_void_p(stream),
+        )
+    cuda_lib.check(lib, err, "hamming_match")
+    match_descriptors_cuda.launches += 1
+    return MatchResult(idx_b=idx, dist=dist, valid=valid)
+
+
+match_descriptors_cuda.launches = 0
+
+
 def match_descriptors(
     desc_a: torch.Tensor,
     desc_b: torch.Tensor,
@@ -133,14 +224,13 @@ def match_descriptors(
     max_distance: int = 60,
     ratio: float = 0.0,
     mutual: bool = True,
-    hamming=hamming_matrix,
 ) -> MatchResult:
-    """Distance matrix + selection. ``desc_a`` may carry a batch dim
-    (B, Na, W) against a shared ``desc_b`` (Nb, W). ``hamming`` picks the
-    distance-matrix function (the dispatching wrapper by default; the plain
-    version to compare with it on the card)."""
-    d = hamming(desc_a, desc_b)
-    m = valid_a[..., :, None] & valid_b[..., None, :]
-    if mask is not None:
-        m = m & mask
-    return match(d, m, max_distance=max_distance, ratio=ratio, mutual=mutual)
+    """Descriptor matching: the fused CUDA matcher for CUDA tensors, the
+    plain version for CPU tensors."""
+    if desc_a.device.type == "cuda":
+        return match_descriptors_cuda(desc_a, desc_b, valid_a, valid_b, mask,
+                                      max_distance=max_distance, ratio=ratio, mutual=mutual)
+    if desc_a.device.type == "cpu":
+        return match_descriptors_plain(desc_a, desc_b, valid_a, valid_b, mask,
+                                       max_distance=max_distance, ratio=ratio, mutual=mutual)
+    raise ValueError(f"match_descriptors: unsupported device {desc_a.device}")

@@ -12,12 +12,13 @@ and calls these):
 - ``gate_match_all`` (``_gate_match_all``): projection-gated map matching.
   Every keypoint of every camera is gated against the landmark table with
   the χ²(2) 99.9% ellipse of the projected landmark covariance, then
-  matched by Hamming distance (the B2 kernel on CUDA).
+  matched by Hamming distance (the fused B2 matcher kernel on CUDA).
 - ``match_stage`` (``_match_stage``): ``gate_match_all`` + 3D-2D RANSAC on
   camera 0 + reprojection acceptance through the fitted pose.
 - ``stereo_match_tri`` and ``temporal_match_tri``
   (``_make_stereo_match_tri``, ``_make_temporal_match_tri``): stereo and
-  temporal matching (B2 on CUDA) + triangulation + gates + map dedup.
+  temporal matching (the fused B2 matcher on CUDA) + triangulation + gates +
+  map dedup.
 - ``opt_program`` (``_make_opt_program``): optimize (the B1 kernel solves
   each LM step on CUDA) → marginalize the host-chosen victim slot → the
   octave-normalized reprojection error of every observation for outlier
@@ -57,7 +58,7 @@ from ..frontend import (
 from ..imu import ImuParameters, preintegrate, propagate, sqrt_information
 from ..kinematics import Transformation, compose, inverse, quaternion as quat, transform_point
 from ..ops import descriptor as desc_ops, detection, image as image_ops
-from ..ops.hamming import hamming_matrix, match_descriptors
+from ..ops.hamming import match_descriptors
 from ..ops.solve import solve_spd
 from ..problems import Frame
 
@@ -95,12 +96,13 @@ def gate_match_all(
     T_WS_r, T_WS_q, ext_r, ext_q,
     kp_sigma,  # (C,K) per-keypoint pixel std
     pos_var,  # () pose translation variance
-    hamming=hamming_matrix,
+    matcher=match_descriptors,
 ):
     """Projection gating with projected covariance: the search region
     around each predicted landmark projection is the χ²(2) 99.9% ellipse of
     J (Σ_lm + pos_var·I) Jᵀ + σ_kp² I, with a 3 px floor and a 150 px cap,
-    then mutual best-match Hamming matching (threshold 60).
+    then mutual best-match Hamming matching (threshold 60) by ``matcher``
+    (the fused B2 kernel on CUDA by default).
 
     Returns (match valid (C,K), landmark slot (C,K) int32 or -1, unit
     bearing of every keypoint (C,K,3))."""
@@ -132,10 +134,7 @@ def gate_match_all(
         & (d2 < 150.0**2)
         & proj_ok[:, None, :]
     )
-    res = match_descriptors(
-        desc, lm_desc, kp_valid, lm_valid, mask=mask, max_distance=60,
-        mutual=True, hamming=hamming,
-    )
+    res = matcher(desc, lm_desc, kp_valid, lm_valid, mask=mask, max_distance=60, mutual=True)
     return res.valid, res.idx_b, back_project(cam, uv)
 
 
@@ -193,7 +192,7 @@ def match_stage(
     hp_W, lm_valid, lm_desc, lm_cov,
     T_WS_r, T_WS_q, ext_r, ext_q, kp_sigma, pos_var,
     draw,
-    hamming=hamming_matrix,
+    matcher=match_descriptors,
 ):
     """The whole data-association stage: projection-gated matching, 3D-2D
     RANSAC over camera 0's candidates, and reprojection acceptance of every
@@ -201,7 +200,7 @@ def match_stage(
     (C,K), candidate count, RANSAC success, fitted T_WS r and q)."""
     mv, midx, rays = gate_match_all(
         rig, uv, desc, kp_valid, hp_W, lm_valid, lm_desc, lm_cov,
-        T_WS_r, T_WS_q, ext_r, ext_q, kp_sigma, pos_var, hamming=hamming,
+        T_WS_r, T_WS_q, ext_r, ext_q, kp_sigma, pos_var, matcher=matcher,
     )
     cand = mv & free  # (C,K) gated, unassociated keypoints
     n_cand = cand.sum()
@@ -251,7 +250,7 @@ def stereo_match_tri(
     cam_a: PinholeCamera, cam_b: PinholeCamera, ray_sigma_base: float, pose_var: float,
     descA, descB, valA, valB, uvA, uvB, octA, octB,
     T_WS_r, T_WS_q, eAr, eAq, eBr, eBq, hp_W, lm_valid,
-    hamming=hamming_matrix,
+    matcher=match_descriptors,
 ):
     """Stereo intra-frame association + probabilistic triangulation:
     descriptor matching, per-octave ray sigmas, world-frame midpoint
@@ -261,8 +260,7 @@ def stereo_match_tri(
     T_WS = Transformation(r=T_WS_r, q=T_WS_q)
     TA = compose(T_WS, Transformation(r=eAr, q=eAq))
     TB = compose(T_WS, Transformation(r=eBr, q=eBq))
-    res = match_descriptors(descA, descB, valA, valB, max_distance=60, mutual=True,
-                            hamming=hamming)
+    res = matcher(descA, descB, valA, valB, max_distance=60, mutual=True)
     ib = res.idx_b.long()
     rays_a, rays_b, sigA, sigB = _rays_and_sigmas(cam_a, cam_b, ray_sigma_base, uvA, uvB[ib],
                                                   octA, octB[ib])
@@ -280,11 +278,18 @@ def stereo_match_tri(
     return res.idx_b, pts, good, cov
 
 
+def flow_mask(uvC, uvP, diag: float):
+    """(Kc, Kp) pairs whose keypoints lie within a quarter of the image
+    diagonal of each other: the temporal matcher's optical-flow gate."""
+    d2_uv = torch.sum((uvC[:, None, :] - uvP[None, :, :]) ** 2, dim=-1)
+    return d2_uv < (0.25 * diag) ** 2
+
+
 def temporal_match_tri(
     cam: PinholeCamera, ray_sigma_base: float, diag: float, focal: float, draw_rot, draw_rel,
     descC, descP, valC, valP, uvC, uvP, octC, octP,
     rA, qA, rB, qB, pose_var, hp_W, lm_valid,
-    hamming=hamming_matrix,
+    matcher=match_descriptors,
 ):
     """Temporal 2D-2D bootstrap for one camera (current frame A against the
     last keyframe B): optical-flow-gated matching, probabilistic
@@ -293,10 +298,8 @@ def temporal_match_tri(
     ``draw_rel`` draw the two RANSACs' samples. Returns (matched index in B,
     points, good, covariances, rotation-only decision ())."""
     dtype = uvC.dtype
-    d2_uv = torch.sum((uvC[:, None, :] - uvP[None, :, :]) ** 2, dim=-1)
-    flow_mask = d2_uv < (0.25 * diag) ** 2
-    res = match_descriptors(descC, descP, valC, valP, mask=flow_mask, max_distance=60,
-                            mutual=True, hamming=hamming)
+    res = matcher(descC, descP, valC, valP, mask=flow_mask(uvC, uvP, diag), max_distance=60,
+                  mutual=True)
     ib = res.idx_b.long()
     ok = res.valid
     npair = ok.sum()
@@ -401,12 +404,12 @@ class BackendStep(nn.Module):
     The rig's intrinsics and extrinsics and the IMU model's float
     parameters are buffers (they move with ``.to()``; the IMU ones start in
     float64 and so keep their values exactly until cast). ``solve`` and
-    ``hamming`` pick the dense solver and the distance-matrix function: the
+    ``matcher`` pick the dense solver and the descriptor matcher: the
     dispatching wrappers by default (CUDA kernels for CUDA tensors), or the
     plain versions."""
 
     def __init__(self, rig: RigParams, imu_p: ImuParameters, cfg: WindowConfig,
-                 solve=solve_spd, hamming=hamming_matrix):
+                 solve=solve_spd, matcher=match_descriptors):
         super().__init__()
         for name in ("T_SC_r", "T_SC_q", "fu", "fv", "cu", "cv", "dist"):
             self.register_buffer(name, getattr(rig, name).clone())
@@ -419,7 +422,7 @@ class BackendStep(nn.Module):
                 self._imu_fields[name] = value
         self.cfg = cfg
         self.solve = solve
-        self.hamming = hamming
+        self.matcher = matcher
 
     @property
     def imu_p(self) -> ImuParameters:
@@ -444,7 +447,7 @@ class BackendStep(nn.Module):
             rig, frame.uv, frame.desc, frame.valid,
             window.hp_W, window.lm_valid, frame.lm_desc, frame.lm_cov,
             frame.T_WS_r, frame.T_WS_q, window.ext_r, window.ext_q,
-            frame.sigma, frame.pos_var, hamming=self.hamming,
+            frame.sigma, frame.pos_var, matcher=self.matcher,
         )
         o = optimize_marginalize_prune(
             window, factors, n_iters, victim, rig, self.imu_p, self.cfg, self.solve

@@ -19,9 +19,10 @@ covariances, frame records) lives on the host as numpy, in the port's
 NamedTuples; each program uploads what it reads and the engine fetches its
 outputs at the same points as the JAX engine (one ``to_numpy_tree`` per
 fetch). Device programs are the pure functions of ``pipeline/programs.py``;
-``solve`` and ``hamming`` are threaded through to them, so the same engine
+``solve`` and ``matcher`` are threaded through to them, so the same engine
 runs with the CUDA kernels (the defaults, on a CUDA device) or with their
-plain versions. ``add_frame`` turns TF32 off for its duration.
+plain versions. The engine runs on ``cuda`` unless the caller names another
+device (the CPU tests pass ``device="cpu"``). ``add_frame`` turns TF32 off for its duration.
 
 RANSAC samples are drawn on the device by ``draw_hypotheses(seed, sub,
 valid, num_hypotheses, sample_size)``, seeded from the same host
@@ -50,7 +51,7 @@ from ..frontend.hull import keyframe_overlap_ratio
 from ..imu import init_pose_from_imu, preintegrate
 from ..kinematics import Transformation, npq
 from ..ops import detection
-from ..ops.hamming import hamming_matrix
+from ..ops.hamming import match_descriptors
 from ..ops.solve import solve_spd
 from ..utils import Timer
 from . import programs
@@ -131,15 +132,17 @@ class VioEngine:
     """Deterministic sonar-visual-inertial-depth odometry engine."""
 
     def __init__(self, config: VioConfig, rig=None, dtype=None, device=None,
-                 solve=solve_spd, hamming=hamming_matrix):
-        self.device = torch.device(device if device is not None else "cpu")
+                 solve=solve_spd, matcher=match_descriptors):
+        self.device = torch.device(device if device is not None else "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("VioEngine: no CUDA device; pass device='cpu' to run on the CPU")
         if dtype is None:
             dtype = torch.float32 if self.device.type == "cuda" else torch.float64
         self.dtype = dtype
         self.cfg = config
         self.rig = rig if rig is not None else config.build_rig(dtype, self.device)
         self.rig_p = rig_params(self.rig, dtype, self.device)
-        self.solve, self.hamming = solve, hamming
+        self.solve, self.matcher = solve, matcher
         S = config.num_keyframes + config.num_imu_frames
         estimate_ext = (
             config.sigma_absolute_translation > 1e-16 and config.sigma_absolute_orientation > 1e-16
@@ -540,7 +543,7 @@ class VioEngine:
             d(fd.kp_octave[0]), d(fd.kp_octave[1]), d(T_r), d(T_q),
             d(self.window.ext_r[0]), d(self.window.ext_q[0]),
             d(self.window.ext_r[1]), d(self.window.ext_q[1]),
-            d(self.window.hp_W), d(self.window.lm_valid), hamming=self.hamming,
+            d(self.window.hp_W), d(self.window.lm_valid), matcher=self.matcher,
         )
 
     def _apply_stereo(self, fetched, slot: int, fd: _FrameData) -> int:
@@ -609,7 +612,7 @@ class VioEngine:
                 d(fd_prev.kp_valid[ci] & (fd_prev.kp_landmark[ci] < 0)),
                 d(fd.kp_uv[ci]), d(fd_prev.kp_uv[ci]), d(fd.kp_octave[ci]), d(fd_prev.kp_octave[ci]),
                 d(rA), d(qA), d(rB), d(qB), d(self._pose_var_temporal(slot)),
-                d(self.window.hp_W), d(self.window.lm_valid), hamming=self.hamming,
+                d(self.window.hp_W), d(self.window.lm_valid), matcher=self.matcher,
             )))
         fetched = to_numpy_tree([p[1] for p in pending])
         for (ci, _), (ib_all, pts_all, good, cov_all, rot_only) in zip(pending, fetched):
@@ -653,7 +656,7 @@ class VioEngine:
                 d(T_r), d(T_q), d(self.window.ext_r), d(self.window.ext_q), d(kp_sigma),
                 d(pos_var),
                 lambda v, H, s: self.draw_hypotheses(seed, None, v, H, s),
-                hamming=self.hamming,
+                matcher=self.matcher,
             )
 
     def _apply_match(self, fetched, slot: int, fd: _FrameData) -> int:

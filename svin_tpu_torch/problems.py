@@ -224,6 +224,68 @@ def random_descriptors(rng: np.random.Generator, n: int, words: int = 8) -> np.n
     return rng.integers(0, 2**32, size=(n, words), dtype=np.uint64).astype(np.uint32).view(np.int32)
 
 
+def _flip_bits(rng: np.random.Generator, d: np.ndarray, nbits: int) -> np.ndarray:
+    """The 8-word descriptor ``d`` (uint32) with ``nbits`` distinct random bits flipped."""
+    out = d.copy()
+    for bit in rng.choice(256, size=nbits, replace=False):
+        out[bit // 32] ^= np.uint32(1 << (bit % 32))
+    return out
+
+
+def matcher_case(rng: np.random.Generator, cams: int = 2, na: int = 40, nb: int = 50,
+                 keep: float = 0.8):
+    """Inputs for the descriptor matcher with every rule planted: a batch of
+    ``cams`` cameras' keypoints (cams, na, 8) against a shared table (nb, 8)
+    (int32 words), valid flags (cams, na) and (nb,), and a pair mask (cams,
+    na, nb) keeping a ``keep`` share of pairs. Half the keypoints are noisy
+    copies of table rows (0-69 bits flipped, around the threshold of 60);
+    table rows 5 and 6 are identical, and keypoint 0 is near them (a row
+    tie: the lowest column wins); keypoints 1 and 2 are both exact copies
+    of table row 9 (a column tie: the lowest row wins); about 10% of
+    keypoints and table rows are invalid; keypoint 7's row and table column
+    11 are fully masked. Needs na >= 8 and nb >= 12."""
+    u32 = lambda n: rng.integers(0, 2**32, size=(n, 8), dtype=np.uint64).astype(np.uint32)  # noqa: E731
+    b = u32(nb)
+    b[6] = b[5]
+    a = np.stack([np.concatenate([
+        np.stack([_flip_bits(rng, b[j], int(rng.integers(0, 70)))
+                  for j in rng.choice(nb, size=na // 2, replace=na // 2 > nb)]).reshape(-1, 8),
+        u32(na - na // 2)]) for _ in range(cams)])
+    a[:, 0] = _flip_bits(rng, b[5], 4)
+    a[:, 1] = a[:, 2] = b[9]
+    va = rng.uniform(size=(cams, na)) < 0.9
+    vb = rng.uniform(size=nb) < 0.9
+    va[:, :3] = True
+    vb[[5, 6, 9]] = True
+    mask = rng.uniform(size=(cams, na, nb)) < keep
+    mask[:, :3] = True
+    mask[:, 7] = False
+    mask[:, :, 11] = False
+    return a.view(np.int32), b.view(np.int32), va, vb, mask
+
+
+# the engine's three matchers at the shipped shapes (400 keypoints per
+# camera): (cameras, keypoints, table rows, share of pairs the mask keeps or
+# None for no mask). map: both cameras' keypoints against the landmark
+# table, gated; stereo: camera 0 against camera 1, no mask; temporal:
+# against the last keyframe under the optical-flow mask
+MATCHER_SHAPES = {"map": (2, 400, 512, 0.3), "stereo": (1, 400, 400, None),
+                  "temporal": (1, 400, 400, 0.5)}
+
+
+def matcher_inputs(kind: str, rng: np.random.Generator, device=None) -> tuple:
+    """``matcher_case`` at one matcher's shape (``MATCHER_SHAPES``) as
+    tensors on ``device``, in the form the engine passes them: (a, b,
+    valid_a, valid_b, mask), 2-D for the stereo and temporal matchers, and
+    mask None where the matcher has none."""
+    cams, na, nb, keep = MATCHER_SHAPES[kind]
+    a, b, va, vb, mask = (torch.as_tensor(x, device=device)
+                          for x in matcher_case(rng, cams=cams, na=na, nb=nb, keep=keep or 1.0))
+    if cams == 1:
+        a, va, mask = a[0], va[0], mask[0].contiguous()
+    return a, b, va, vb, None if keep is None else mask
+
+
 def make_frame(rng: np.random.Generator, window, truth: dict, rig_p, lm_desc: np.ndarray,
                slot: int, K: int = 400, pix_noise: float = 0.5, flip_bits: int = 4,
                pos_var: float = 1e-2, lm_cov_var: float = 0.25):

@@ -7,12 +7,15 @@ the xdist options of pytest.ini:
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: B2 is integer-exact. B1 (float32 Gauss–Jordan without
-pivoting vs float32 Cholesky) on Jacobi-equilibrated SPD systems: relative
-residual ≤ 1e-4 and relative distance to the plain solution ≤ 1e-3. The
-backend step with kernels vs with plain versions: identical matches (the
-distance matrix is exact), cost within 1% and positions within 1 mm (the
-two solvers round differently and the LM loop carries that forward). The
+Tolerances: B2's distance matrix and the fused matcher are integer-exact
+(bit for bit against the plain matcher). B1 (the float32 blocked-Cholesky
+kernel vs float32 ``cholesky_ex`` + ``cholesky_solve``) on
+Jacobi-equilibrated SPD systems: relative residual ≤ 1e-4 and relative
+distance to the plain solution ≤ 1e-3; a system that does not factor gives
+all NaN in both. The backend step with kernels vs with plain versions:
+identical matches (the matcher is exact), cost within 1% and positions
+within 1 mm (the two solvers round differently and the LM loop carries that
+forward). The
 engine's serial path at the CPU tests' size: the CPU tests' tracking and
 5 cm ATE bounds, with the kernels and with the plain versions.
 """
@@ -69,10 +72,10 @@ def _equilibrated_spd(rng, D, batch=()):
 def test_solve_kernel_matches_plain(dev, D):
     rng = np.random.default_rng(D)
     H, b = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in _equilibrated_spd(rng, D))
-    n0 = tsolve.spd_solve_gj.launches
+    n0 = tsolve.spd_solve_chol.launches
     x = tsolve.solve_spd(H, b)
     torch.cuda.synchronize()
-    assert tsolve.spd_solve_gj.launches == n0 + 1
+    assert tsolve.spd_solve_chol.launches == n0 + 1
     ref = tsolve.solve_spd_plain(H, b)
     assert float(torch.linalg.norm(H @ x - b) / torch.linalg.norm(b)) <= 1e-4
     assert float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref)) <= 1e-3
@@ -82,16 +85,63 @@ def test_solve_kernel_batched_and_refusals(dev):
     rng = np.random.default_rng(1)
     H, b = (torch.as_tensor(x, dtype=torch.float32, device=dev)
             for x in _equilibrated_spd(rng, 40, batch=(3,)))
-    x = tsolve.spd_solve_gj(H, b)
+    H[1] = -H[1]  # not positive definite: that system's x is all NaN, the others solve
+    x = tsolve.spd_solve_chol(H, b)
     ref = tsolve.solve_spd_plain(H, b)
-    assert float((x - ref).abs().max() / ref.abs().max()) <= 1e-3
+    assert bool(torch.isnan(x[1]).all()) and bool(torch.isnan(ref[1]).all())
+    keep = [0, 2]
+    assert not bool(torch.isnan(x[keep]).any())
+    assert float((x[keep] - ref[keep]).abs().max() / ref[keep].abs().max()) <= 1e-3
+    # D = 250: more trailing rows than one sweep carries, and more than 48 KB
+    # of shared memory (the opt-in)
+    H, b = (torch.as_tensor(v, dtype=torch.float32, device=dev) for v in _equilibrated_spd(rng, 250))
+    x, ref = tsolve.spd_solve_chol(H, b), tsolve.solve_spd_plain(H, b)
+    assert float(torch.linalg.norm(H @ x - b) / torch.linalg.norm(b)) <= 1e-4
+    assert float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref)) <= 1e-3
     with pytest.raises(TypeError):
         tsolve.solve_spd(H.double(), b.double())  # float32 only: no silent demotion
-    big = torch.eye(240, device=dev)
-    with pytest.raises(ValueError):
-        tsolve.solve_spd(big, torch.ones(240, device=dev))
+    # D = 320 is the largest that one block's shared memory holds; past it
+    # the launch fails and its CUDA error is raised
+    H, b = (torch.as_tensor(v, dtype=torch.float32, device=dev) for v in _equilibrated_spd(rng, 320))
+    x = tsolve.spd_solve_chol(H, b)
+    assert float(torch.linalg.norm(H @ x - b) / torch.linalg.norm(b)) <= 1e-4
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tsolve.solve_spd(torch.eye(321, device=dev), torch.ones(321, device=dev))
     with pytest.raises(TypeError):
         tham.hamming_matrix(torch.zeros((4, 8), device=dev), torch.zeros((4, 8), device=dev))
+
+
+@pytest.mark.parametrize("kind", list(problems.MATCHER_SHAPES))
+def test_fused_matcher_matches_plain(dev, kind):
+    rng = np.random.default_rng(len(kind))
+    args = problems.matcher_inputs(kind, rng, dev)
+    for ratio, mutual in ((0.0, True), (0.8, True), (0.0, False), (0.8, False)):
+        n0 = tham.match_descriptors_cuda.launches
+        got = tham.match_descriptors(*args, max_distance=60, ratio=ratio, mutual=mutual)
+        torch.cuda.synchronize()
+        assert tham.match_descriptors_cuda.launches == n0 + 1
+        want = tham.match_descriptors_plain(*args, max_distance=60, ratio=ratio, mutual=mutual)
+        assert bool(want.valid.any())
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), (kind, ratio, mutual)
+
+
+@pytest.mark.parametrize("nb", [1, 12, 700])
+def test_fused_matcher_ragged_and_batched_b(dev, nb):
+    """Shapes off the main path: a one-column table, a table wider than one
+    column chunk (512), and a batch of distinct tables and valid flags."""
+    rng = np.random.default_rng(nb)
+    a, b, va, vb, mask = (torch.as_tensor(x, device=dev)
+                          for x in problems.matcher_case(rng, cams=2, na=37, nb=max(nb, 12)))
+    b, vb, mask = b[:nb].contiguous(), vb[:nb].contiguous(), mask[..., :nb].contiguous()
+    b2 = torch.stack([b, b.flip(0)]).contiguous()
+    vb2 = torch.stack([vb, ~vb]).contiguous()
+    for args in ((a, b, va, vb, mask), (a, b2, va, vb2, None)):
+        for ratio in (0.0, 0.8):
+            got = tham.match_descriptors_cuda(*args, ratio=ratio)
+            want = tham.match_descriptors_plain(*args, ratio=ratio)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (nb, ratio)
 
 
 def _small_case(dev):
@@ -106,13 +156,13 @@ def _small_case(dev):
 
 def test_backend_step_kernels_match_plain(dev):
     cfg, w, f, rig, frame = _small_case(dev)
-    n_solve, n_ham = tsolve.spd_solve_gj.launches, tham.hamming_matrix_cuda.launches
+    n_solve, n_match = tsolve.spd_solve_chol.launches, tham.match_descriptors_cuda.launches
     kern = BackendStep(rig, problems.IMU_PARAMS, cfg).to(dev)(w, f, frame, cfg.max_iterations, 0)
     torch.cuda.synchronize()
-    assert tsolve.spd_solve_gj.launches == n_solve + cfg.max_iterations
-    assert tham.hamming_matrix_cuda.launches == n_ham + 1
+    assert tsolve.spd_solve_chol.launches == n_solve + cfg.max_iterations
+    assert tham.match_descriptors_cuda.launches == n_match + 1
     plain = BackendStep(rig, problems.IMU_PARAMS, cfg, solve=tsolve.solve_spd_plain,
-                        hamming=tham.hamming_matrix_plain).to(dev)(w, f, frame, cfg.max_iterations, 0)
+                        matcher=tham.match_descriptors_plain).to(dev)(w, f, frame, cfg.max_iterations, 0)
     assert torch.equal(kern.match_idx, plain.match_idx)
     assert float(kern.cost) < float(kern.cost0)
     assert abs(float(kern.cost) - float(plain.cost)) <= 1e-2 * float(plain.cost)
@@ -161,16 +211,17 @@ def _small_engine_run(dev, **kernels):
 
 def test_engine_runs_on_the_card_with_kernels_and_plain(dev):
     """float32 on the card: the serial ``add_frame`` path tracks, stays
-    within the CPU tests' ATE bound (5 cm) and launches both kernels; with
-    the plain versions it launches none and meets the same bound."""
-    n_solve, n_ham = tsolve.spd_solve_gj.launches, tham.hamming_matrix_cuda.launches
+    within the CPU tests' ATE bound (5 cm) and launches both kernels (B1 and
+    the fused matcher); with the plain versions it launches none and meets
+    the same bound."""
+    n_solve, n_match = tsolve.spd_solve_chol.launches, tham.match_descriptors_cuda.launches
     engine, results, ate = _small_engine_run(dev)
     assert len(results) >= 10 and np.median([r.num_tracked for r in results[1:]]) >= 20
     assert ate < 0.05, ate
-    assert tsolve.spd_solve_gj.launches > n_solve and tham.hamming_matrix_cuda.launches > n_ham
+    assert tsolve.spd_solve_chol.launches > n_solve and tham.match_descriptors_cuda.launches > n_match
     assert np.isfinite(engine._lm_cov).all()
-    n_solve, n_ham = tsolve.spd_solve_gj.launches, tham.hamming_matrix_cuda.launches
+    n_solve, n_match = tsolve.spd_solve_chol.launches, tham.match_descriptors_cuda.launches
     _, _, ate_plain = _small_engine_run(dev, solve=tsolve.solve_spd_plain,
-                                        hamming=tham.hamming_matrix_plain)
+                                        matcher=tham.match_descriptors_plain)
     assert ate_plain < 0.05, ate_plain
-    assert (tsolve.spd_solve_gj.launches, tham.hamming_matrix_cuda.launches) == (n_solve, n_ham)
+    assert (tsolve.spd_solve_chol.launches, tham.match_descriptors_cuda.launches) == (n_solve, n_match)

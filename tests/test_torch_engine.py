@@ -51,7 +51,7 @@ def _jax_config():
 
 
 def port_engine(dtype=torch.float64, jax_draws=True):
-    eng = VioEngine(config_from_numpy(_jax_config()), rig=port_rig(), dtype=dtype)
+    eng = VioEngine(config_from_numpy(_jax_config()), rig=port_rig(), dtype=dtype, device="cpu")
     if jax_draws:
         eng.draw_hypotheses = jax_engine_draw
     return eng
@@ -191,7 +191,7 @@ def test_landmark_covariance_stays_finite_in_float32():
     pass the quality bound alone; the engine's gate table stays finite."""
     rig = port_rig()
     cfg = config_from_numpy(small_config())
-    eng = VioEngine(cfg, rig=rig, dtype=torch.float32)
+    eng = VioEngine(cfg, rig=rig, dtype=torch.float32, device="cpu")
     events, _ = synthetic_sequence(
         rig, duration=1.3, cam_rate=6.0, imu_rate=100.0, imu_params=cfg.imu, seed=3,
         n_points=300, traj=tsim.default_trajectory(scale=0.4, ramp_tau=0.8), spread=6.0,

@@ -58,7 +58,7 @@ def runs():
         depth_offset=3.0, t_first_frame=0.12)
     events = list(events)
     jres = jax_run_events(JaxEngine(_config(), rig=jrig), events)
-    eng = VioEngine(config_from_numpy(_config()), rig=trig)
+    eng = VioEngine(config_from_numpy(_config()), rig=trig, device="cpu")
     eng.draw_hypotheses = jax_engine_draw
     res = run_events(eng, events)
     gt = np.stack([np.asarray(renderer.pose(r.timestamp).r) for r in jres])

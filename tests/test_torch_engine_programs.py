@@ -59,7 +59,7 @@ def scene():
                                  traj=jsim.default_trajectory(scale=0.4, ramp_tau=0.8),
                                  spread=6.0, depth_offset=3.0)
     jeng = JaxEngine(small_config(), rig=rig)
-    teng = VioEngine(config_from_numpy(small_config()), rig=port_rig())
+    teng = VioEngine(config_from_numpy(small_config()), rig=port_rig(), device="cpu")
     frames = {}
     for name, t in (("A", 0.9), ("B", 1.05)):
         imgs = np.stack([np.clip(im * 255.0 + 0.5, 0, 255).astype(np.uint8)
@@ -268,3 +268,19 @@ def test_preint_prop_and_gravity_match_jax(scene):
     g = programs.gravity_dirs(t64(T.q), t64(scene["ext_q"]))
     assert_close(g, jax.device_get(jeng._gravity_fn(jnp.asarray(T.q), jnp.asarray(scene["ext_q"]))),
                  rtol=1e-12)
+
+
+def test_engine_runs_on_the_card_unless_asked_for_the_cpu():
+    """``VioEngine`` without a device runs on ``cuda``: where there is no
+    card it raises rather than falling back to the CPU; ``device="cpu"``
+    is the explicit way to run there."""
+    cfg = config_from_numpy(small_config())
+    if torch.cuda.is_available():
+        assert VioEngine(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            VioEngine(cfg, rig=port_rig())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            VioEngine(cfg, device="cuda")
+    eng = VioEngine(cfg, rig=port_rig(), device="cpu")
+    assert eng.device.type == "cpu" and eng.dtype == torch.float64

@@ -17,6 +17,8 @@ Tolerances:
   bit whose two bilinear samples tie to float32 rounding may flip between
   the JAX package's selection matmul and the port's direct gathers).
 - ``gravity_angles`` to 1e-6.
+- matching the frames' own descriptors (the fused matcher's plain version
+  against the JAX package's ``match_descriptors``): integer-exact.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,12 +28,14 @@ import torch
 from svin_tpu import sim as jsim
 from svin_tpu.ops import descriptor as jdesc
 from svin_tpu.ops import detection as jdet
+from svin_tpu.ops import hamming as jham
 from svin_tpu.ops import image as jimg
 from svin_tpu.pipeline.dataset import SyntheticRenderer
 from svin_tpu_torch.ops import descriptor as tdesc
 from svin_tpu_torch.ops import detection as tdet
 from svin_tpu_torch.ops import image as timg
-from svin_tpu_torch.ops.hamming import hamming_matrix_plain
+from svin_tpu_torch.ops.hamming import hamming_matrix_plain, match_descriptors_plain
+from svin_tpu_torch.pipeline.programs import flow_mask
 from vio_fixtures import small_rig
 
 torch.set_num_threads(1)
@@ -179,3 +183,28 @@ def test_renderer_from_jax_scene_matches_jax():
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
             q = lambda a: np.clip(a * 255.0 + 0.5, 0, 255).astype(np.uint8)  # noqa: E731
             assert (q(got) != q(want)).mean() < 1e-3
+
+
+@pytest.mark.parametrize("ratio", [0.0, 0.8])
+@pytest.mark.parametrize("pair", ["stereo", "temporal"])
+def test_match_frame_descriptors_matches_jax(frames, ratio, pair):
+    """The stereo matcher's pairing (camera 0 against camera 1, no mask) and
+    the temporal one (camera 0 against its next frame under the optical-flow
+    gate) on the frames' own descriptors: ``match_descriptors_plain``
+    against the JAX ``match_descriptors``, exact."""
+    def kp_desc(u8):
+        f = _f32(u8)
+        kp = tdet.detect(f, max_keypoints=150, threshold=THRESH, octaves=2)
+        ang = tdesc.gravity_angles(kp.uv, torch.tensor([0.1, 0.9, 0.3]))
+        return kp, tdesc.describe(f, kp.uv, ang, kp.valid, octave=kp.octave, max_octave=2)
+
+    (ka, da), (kb, db) = kp_desc(frames[0]), kp_desc(frames[1 if pair == "stereo" else 2])
+    mask = None if pair == "stereo" else flow_mask(ka.uv, kb.uv, 250.0)
+    got = match_descriptors_plain(da, db, ka.valid, kb.valid, mask, max_distance=60, ratio=ratio)
+    want = jham.match_descriptors(
+        jnp.asarray(da.numpy().view(np.uint32)), jnp.asarray(db.numpy().view(np.uint32)),
+        jnp.asarray(ka.valid.numpy()), jnp.asarray(kb.valid.numpy()),
+        None if mask is None else jnp.asarray(mask.numpy()), max_distance=60, ratio=ratio)
+    assert int(got.valid.sum()) >= 5
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -1,9 +1,9 @@
 """The port's kernels against the JAX package's Pallas kernels.
 
-B1 (dense SPD solve) and B2 (Hamming distance matrix): on the CPU the port
-runs each kernel's plain version, held here to the JAX Pallas kernel in
-interpret mode (as ``tests/test_ops.py`` runs it) and to the JAX package's
-own CPU path. The CUDA kernels themselves run only on a card:
+B1 (dense SPD solve), B2 (Hamming distance matrix) and the fused matcher
+(distances + selection): on the CPU the port runs each kernel's plain
+version, held here to the JAX Pallas kernel in interpret mode (as
+``tests/test_ops.py`` runs it) and to the JAX package's own CPU path. The CUDA kernels themselves run only on a card:
 ``tests/test_torch_cuda.py`` holds them to these plain versions there.
 
 Tolerances: B2 and the matcher are integer-exact. The plain solve (f64
@@ -20,6 +20,7 @@ import torch
 from svin_tpu.ops import hamming as jham
 from svin_tpu.ops import linalg3 as jl3
 from svin_tpu.ops import solve as jsolve
+from svin_tpu_torch import problems
 from svin_tpu_torch.ops import hamming as tham
 from svin_tpu_torch.ops import linalg3 as tl3
 from svin_tpu_torch.ops import solve as tsolve
@@ -94,14 +95,29 @@ def test_solve_plain_batched_and_not_positive_definite():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
+    """The CUDA wrappers launch or raise: CPU tensors, wrong dtypes and
+    non-contiguous input are refused before any build or launch."""
     H, b = torch.eye(4, dtype=torch.float32), torch.ones(4, dtype=torch.float32)
-    with pytest.raises(ValueError):
-        tsolve.spd_solve_gj(H, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsolve.spd_solve_chol(H, b)
+    with pytest.raises(TypeError):
+        tsolve.spd_solve_chol(H.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tsolve.spd_solve_chol(torch.eye(8)[::2, ::2], torch.ones(4))
     a = torch.zeros((3, 8), dtype=torch.int32)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="CUDA"):
         tham.hamming_matrix_cuda(a, a)
-    assert tsolve.smem_bytes(120) > 48 * 1024  # needs the dynamic shared-memory opt-in
-    assert tsolve.smem_bytes(239) <= tsolve.MAX_SMEM_BYTES < tsolve.smem_bytes(240)
+    with pytest.raises(TypeError):
+        tham.hamming_matrix_cuda(a.float(), a.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        tham.hamming_matrix_cuda(torch.zeros((3, 16), dtype=torch.int32)[:, ::2], a)
+    va = torch.ones(3, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        tham.match_descriptors_cuda(a, a, va, va)
+    with pytest.raises(TypeError):
+        tham.match_descriptors_cuda(a, a, va.int(), va)
+    with pytest.raises(ValueError, match="contiguous"):
+        tham.match_descriptors_cuda(a, a, va, va, mask=torch.ones((3, 6), dtype=torch.bool)[:, ::2])
 
 
 def test_linalg3_matches_jax():
@@ -142,3 +158,41 @@ def test_match_descriptors_matches_jax():
     want = jham.match_descriptors(jnp.asarray(a), jnp.asarray(b), jnp.asarray(va), jnp.asarray(vb))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("ratio", [0.0, 0.8])
+@pytest.mark.parametrize("mutual", [True, False])
+@pytest.mark.parametrize("masked", [True, False])
+def test_fused_matcher_plain_matches_jax(ratio, mutual, masked):
+    """The fused matcher's plain version (``match_descriptors_plain``, the
+    oracle the CUDA kernel is held to bit for bit) against the JAX
+    package's ``match_descriptors``, per camera of a batch of two against a
+    shared b, integer-exact."""
+    rng = np.random.default_rng(int(ratio * 10) + 2 * mutual + 4 * masked)
+    a, b, va, vb, mask = problems.matcher_case(rng)
+    got = tham.match_descriptors_plain(
+        torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(va), torch.as_tensor(vb),
+        torch.as_tensor(mask) if masked else None, max_distance=60, ratio=ratio, mutual=mutual)
+    assert bool(got.valid.any())
+    for c in range(a.shape[0]):
+        want = jham.match_descriptors(
+            jnp.asarray(a[c].view(np.uint32)), jnp.asarray(b.view(np.uint32)),
+            jnp.asarray(va[c]), jnp.asarray(vb),
+            jnp.asarray(mask[c]) if masked else None, max_distance=60, ratio=ratio, mutual=mutual)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[c].numpy(), np.asarray(w))
+    if masked:
+        assert got.dist[:, 7].tolist() == [tham.BIG] * a.shape[0]  # fully masked row
+        assert got.idx_b[:, 7].tolist() == [-1] * a.shape[0]
+    if not mutual and ratio == 0.0:
+        assert got.idx_b[:, 0].tolist() == [5] * a.shape[0]  # row tie: lowest column
+
+
+def test_match_descriptors_dispatches_cpu_to_plain():
+    args = tuple(torch.as_tensor(x) for x in problems.matcher_case(np.random.default_rng(11)))
+    n0 = tham.match_descriptors_cuda.launches
+    got = tham.match_descriptors(*args, ratio=0.8)
+    want = tham.match_descriptors_plain(*args, ratio=0.8)
+    assert tham.match_descriptors_cuda.launches == n0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -128,7 +128,7 @@ def main():
 
         cfg = load_config(CONFIG)
         cfg.time_limit = 0.0
-        engine = VioEngine(cfg, dtype=torch.float32)
+        engine = VioEngine(cfg, dtype=torch.float32, device="cpu")
     results, est, gt, walls = replay(engine, path)
     report(mode, results, est, gt, ate_rmse)
     print(f"  add_frame wall: median {np.median(walls) * 1e3:.1f} ms on this host's CPU")

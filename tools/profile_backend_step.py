@@ -79,7 +79,7 @@ def main() -> int:
     imu = problems.IMU_PARAMS
     step = BackendStep(rig, imu, cfg).to(dev)
     plain = BackendStep(rig, imu, cfg, solve=solve.solve_spd_plain,
-                        hamming=hamming.hamming_matrix_plain).to(dev)
+                        matcher=hamming.match_descriptors_plain).to(dev)
     run = lambda: step(w, f, fr, cfg.max_iterations, victim)  # noqa: E731
     run_plain = lambda: plain(w, f, fr, cfg.max_iterations, victim)  # noqa: E731
     run()
