@@ -82,15 +82,48 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
    and p90 (host clock after a synchronize), the stage timers' medians,
    and launches per frame.
 
+5. Pipelined engine: the same configuration, 29 frames and events through
+   ``frontend_stage`` → ``backend_step`` (one solve in flight) and
+   ``backend_flush``.
+   - Split drive on one thread at a fixed 10 LM iterations under
+     deterministic algorithms: kernels, plain versions, kernels. The rerun
+     repeats the first kernel run exactly, the plain run makes the same
+     decisions on at least SHARED_MIN_FRAMES leading frames within
+     POS_TOL_MM, every frame has a result, B1 and the fused matcher are
+     launched from ``backend_step`` (launches per frame printed), and the
+     ATE is within 1.5 x the JAX engine's own split-drive ATE on the same
+     events (JAX_SPLIT_ATE_M). One ``backend_step`` of the first run runs
+     under ``torch.cuda.set_sync_debug_mode("warn")``: its host
+     synchronisations besides the fetch, by call site and op.
+   - Checkpoint round trip on the card: save the flushed engine, load it
+     into a fresh ``cuda`` engine, save again; every array equal.
+   - ``AsyncVioEngine(blocking=True)`` (frontend, backend and publisher
+     threads) at the config's budget, in turns with the serial engine:
+     serial, plain, kernels (the pipelined main path: launch counts from 0
+     just before, read just after), kernels, plain, serial. Checks: no drop,
+     a result for every frame after the first, increasing timestamps,
+     ``finish()`` raising nothing, B1 and the fused matcher launched and
+     the distance matrix not (no kernel in the plain runs), ATE within 2 x
+     JAX_SPLIT_ATE_M. Frames per second end to end (feed to ``finish()``)
+     beside the serial engine's, and the device-busy share of the first 6
+     frames of each from a ``torch.profiler`` trace.
+   - One live-mode run (``blocking=False``) fed at the sequence's 10 Hz:
+     processed and dropped frames add up to the frames fed.
+
 The second-to-last line of standard output is the kernels' JSON record; the
 last is ``{"ok": true, "device": {...}}``.
 """
+import collections
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -103,6 +136,8 @@ from svin_tpu_torch.evaluation import ate_rmse
 from svin_tpu_torch.ops import cuda_lib, hamming, solve
 from svin_tpu_torch.pipeline import (BackendStep, VioEngine, load_config, programs, run_events,
                                      synthetic_sequence)
+from svin_tpu_torch.pipeline.async_vio import AsyncVioEngine
+from svin_tpu_torch.pipeline.checkpoint import load_engine, save_engine
 from svin_tpu_torch.utils import Timing
 
 N_FRAMES = 5
@@ -113,6 +148,11 @@ ENGINE_CONFIG = "configs/underwater_sonar_depth.yaml"
 # the JAX engine's SE(3)-aligned ATE on this sequence's events at a fixed 10
 # LM iterations per frame, float32 on the CPU (tools/engine_ate_reference.py)
 JAX_ATE_M = 0.009505
+# the same through the JAX engine's pipelined split steps (frontend_stage,
+# backend_step, backend_flush; one solve in flight), the pipelined bounds'
+# base: python3 tools/engine_ate_reference.py write EVENTS.npz, then
+# JAX_PLATFORMS=cpu python3 tools/engine_ate_reference.py jax-split EVENTS.npz
+JAX_SPLIT_ATE_M = 0.012831
 # runs at that fixed count repeat themselves (deterministic algorithms); runs
 # at the config's wall-clock budget do not, and spread wider
 ATE_FACTOR = {"fixed": 1.5, "budget": 2.0}
@@ -562,8 +602,10 @@ def drive_engine(name, cfg, events, gt, dev, verbose=True, **kernels) -> dict:
     engine = TimedEngine(VioEngine(cfg, device=dev, **kernels))
     Timing.reset()
     reset_counts()
+    t0 = time.perf_counter()
     results = run_events(engine, events)
     torch.cuda.synchronize()
+    fps = len(results) / (time.perf_counter() - t0)
     launches = read_counts()
     eng = engine.engine
     n_frames = sum(ev.kind == "frame" for ev in events)
@@ -589,8 +631,9 @@ def drive_engine(name, cfg, events, gt, dev, verbose=True, **kernels) -> dict:
     ms = engine.frame_ms[1:]  # the first frame initializes (no solve)
     if not verbose:
         log(f"engine [{name}]: ATE {ate:.6f} m, add_frame median "
-            f"{statistics.median(ms):.2f} ms, p90 {float(np.percentile(ms, 90)):.2f} ms")
-        return dict(launches=launches, ate=ate, frame_ms=ms, results=results)
+            f"{statistics.median(ms):.2f} ms, p90 {float(np.percentile(ms, 90)):.2f} ms, "
+            f"{fps:.3f} frames/s end to end")
+        return dict(launches=launches, ate=ate, frame_ms=ms, results=results, fps=fps)
     log(f"engine [{name}]: {len(results)} frames, {len(kfs)} keyframes, median tracked "
         f"{np.median(tracked[1:]):.0f}, n_states {eng.n_states}/{S}, ATE (SE(3)) {ate:.6f} m "
         f"(bound {factor * JAX_ATE_M:.6f} m = {factor} x the JAX engine's {JAX_ATE_M:.6f} m), "
@@ -598,13 +641,14 @@ def drive_engine(name, cfg, events, gt, dev, verbose=True, **kernels) -> dict:
     log(f"  tracked per frame {tracked}")
     log(f"  LM iterations per frame {[r.lm_iterations for r in results]}")
     log(f"  add_frame per frame (frames 2-{len(results)}): median {statistics.median(ms):.2f} ms, "
-        f"p90 {float(np.percentile(ms, 90)):.2f} ms, max {max(ms):.2f} ms")
+        f"p90 {float(np.percentile(ms, 90)):.2f} ms, max {max(ms):.2f} ms; {fps:.3f} frames/s "
+        f"end to end")
     stages = {k: statistics.median(list(Timing.get(k).window)) * 1e3
               for k in STAGES if Timing.get(k) is not None}
     log("  stage medians (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
     log(f"  launches {launches}, per frame "
         f"{ {k: round(v / len(results), 2) for k, v in launches.items()} }")
-    return dict(launches=launches, ate=ate, frame_ms=ms, results=results)
+    return dict(launches=launches, ate=ate, frame_ms=ms, results=results, fps=fps)
 
 
 def frame_descriptor_check(cfg, frames, dev) -> None:
@@ -768,7 +812,288 @@ def engine_phase(dev) -> dict:
         f"plain {p_fix['ate']:.6f} m, JAX engine (CPU, float32) {JAX_ATE_M:.6f} m; at the "
         f"config's budget: kernels {out['ate']:.6f} m and {again['ate']:.6f} m, plain "
         f"{plain['ate']:.6f} m and {plain_again['ate']:.6f} m")
-    return out["launches"]
+    return out["launches"], (cfg, events, gt)
+
+
+# ---------------------------------------------------------------- pipelined
+def _port_frames(stack) -> list:
+    return [f for f in stack if os.sep + "svin_tpu_torch" + os.sep in f.filename]
+
+
+def sync_probe(engine, t, images, fd):
+    """One ``backend_step`` under ``set_sync_debug_mode("warn")``: (its
+    result, Counter of host synchronisations by (innermost port call site,
+    its source line, the backend_step line it came from))."""
+    torch.cuda.synchronize()
+    sites = collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        port = _port_frames(stack) or stack[-1:]
+        inner = port[-1]
+        step = next((f for f in reversed(port) if f.name == "backend_step"), inner)
+        rel = os.path.relpath(inner.filename, os.path.dirname(os.path.abspath(__file__)))
+        sites[(f"{rel}:{inner.lineno} {inner.name}", (inner.line or "").strip(),
+               step.lineno)] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = engine.backend_step(t, images, fd)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return result, sites
+
+
+def split_drive(engine, events, probe_frame=None):
+    """The events through the engine's split steps on one thread: the frame
+    that initializes through ``add_frame``, every later one through
+    ``frontend_stage`` → ``backend_step``, then ``backend_flush``. Returns
+    (results, the kernels' launches inside backend_step and the flush,
+    the sync probe's sites or None)."""
+    results, inside, sites = [], dict.fromkeys(KERNELS, 0), None
+    n_frame = 0
+
+    def step(fn, *args):
+        before = read_counts()
+        out = fn(*args)
+        for k, v in read_counts().items():
+            inside[k] += v - before[k]
+        return out
+
+    for ev in events:
+        if ev.kind == "imu":
+            engine.add_imu_measurement(ev.t, *ev.imu)
+        elif ev.kind == "depth":
+            engine.add_depth_measurement(ev.t, ev.depth)
+        elif ev.kind == "sonar":
+            engine.add_sonar_measurement(ev.t, *ev.sonar)
+        else:
+            if engine.n_states == 0:
+                r = engine.add_frame(ev.t, ev.images)
+            else:
+                t_s, fd = engine.frontend_stage(ev.t, ev.images)
+                if n_frame == probe_frame:
+                    r, sites = step(sync_probe, engine, t_s, ev.images, fd)
+                else:
+                    r = step(engine.backend_step, t_s, ev.images, fd)
+            if r is not None:
+                results.append(r)
+            n_frame += 1
+    r = step(engine.backend_flush)
+    if r is not None:
+        results.append(r)
+    torch.cuda.synchronize()
+    return results, inside, sites
+
+
+def check_pipelined(name, results, n_frames, gt, factor, eng) -> float:
+    """A result for every frame after the first, in order; tracking; the
+    window filled and marginalized; the ATE within ``factor`` x the JAX
+    engine's split-drive ATE. Returns the ATE."""
+    if len(results) < n_frames - 1:
+        raise AssertionError(f"{name}: {len(results)} results for {n_frames} frames")
+    ts = [r.timestamp for r in results]
+    if not all(b > a for a, b in zip(ts, ts[1:])):
+        raise AssertionError(f"{name}: timestamps not increasing")
+    if not np.median([r.num_tracked for r in results[1:]]) >= 20:
+        raise AssertionError(f"{name}: median tracked below 20")
+    if eng.n_states != eng.wcfg.num_states - 1:
+        raise AssertionError(f"{name}: window not filled and marginalized (n_states {eng.n_states})")
+    est = np.stack([r.T_WS.r for r in results])
+    ate, _ = ate_rmse(est, gt[len(gt) - len(results):], with_scale=False)
+    if not ate <= factor * JAX_SPLIT_ATE_M:
+        raise AssertionError(f"{name}: ATE {ate:.6f} m over the bound {factor * JAX_SPLIT_ATE_M:.6f} m")
+    return ate
+
+
+def async_drive(engine, events, blocking=True, pace=None) -> dict:
+    """The events through an ``AsyncVioEngine`` over ``engine`` (camera by
+    camera, through the synchronizer; with ``pace``, at that many times the
+    sequence's rate). Returns the results, frames fed and dropped, and
+    frames per second end to end (first feed to ``finish()`` returning)."""
+    results = []
+    t0 = time.perf_counter()
+    ae = AsyncVioEngine(engine, blocking=blocking)
+    ae.state_callback = results.append
+    n_fed, t_seq0 = 0, None
+    for ev in events:
+        if pace is not None:
+            t_seq0 = ev.t if t_seq0 is None else t_seq0
+            lag = (ev.t - t_seq0) / pace - (time.perf_counter() - t0)
+            if lag > 0:
+                time.sleep(lag)
+        if ev.kind == "imu":
+            ae.add_imu_measurement(ev.t, *ev.imu)
+        elif ev.kind == "depth":
+            ae.add_depth_measurement(ev.t, ev.depth)
+        elif ev.kind == "sonar":
+            ae.add_sonar_measurement(ev.t, *ev.sonar)
+        else:
+            for ci, img in enumerate(ev.images):
+                ae.add_image(ev.t, ci, img)
+            n_fed += 1
+    ae.finish()  # raises if a stage died
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(results=results, fed=n_fed, dropped=ae.dropped_frames, fps=len(results) / wall,
+                wall=wall, engine=engine)
+
+
+def busy_share(fn) -> tuple:
+    """(device-busy share, wall s) of ``fn()`` under ``torch.profiler``: the
+    union of the device operations' intervals over the wall time."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy * 1e-6 / wall, wall
+
+
+def npz_arrays(path) -> dict:
+    with np.load(path) as d:
+        return {k: d[k] for k in d.files}
+
+
+def pipelined_phase(dev, cfg, events, gt) -> dict:
+    frames = [ev for ev in events if ev.kind == "frame"]
+    n = len(frames)
+    fixed = dataclasses.replace(cfg, time_limit=0.0)
+
+    # ---- split drive on one thread, fixed 10 LM iterations, deterministic
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs = {}
+    try:
+        for name, kernels, probe in (("kernels", {}, 12), ("plain", PLAIN, None),
+                                     ("kernels again", {}, None)):
+            eng = VioEngine(fixed, device=dev, **kernels)
+            reset_counts()
+            t0 = time.perf_counter()
+            results, inside, sites = split_drive(eng, events, probe_frame=probe)
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            ate = check_pipelined(f"split [{name}]", results, n, gt, ATE_FACTOR["fixed"], eng)
+            if len(results) != n:
+                raise AssertionError(f"split [{name}]: {len(results)} results for {n} frames")
+            if kernels:
+                if launches != dict.fromkeys(KERNELS, 0):
+                    raise AssertionError(f"split [{name}]: a kernel was launched: {launches}")
+            elif not (all(inside[k] > 0 for k in ON_PATH) and launches["hamming_matrix"] == 0):
+                raise AssertionError(f"split [{name}]: B1 and the fused matcher not both launched "
+                                     f"from backend_step, or the distance matrix was: {inside}")
+            runs[name] = dict(results=results, ate=ate, launches=launches, inside=inside,
+                              engine=eng, sites=sites)
+            log(f"pipelined split drive [{name}, 10 LM iterations]: {len(results)} results for {n} "
+                f"frames, ATE {ate:.6f} m (bound {ATE_FACTOR['fixed'] * JAX_SPLIT_ATE_M:.6f} m = "
+                f"{ATE_FACTOR['fixed']} x the JAX engine's split drive {JAX_SPLIT_ATE_M:.6f} m), "
+                f"{n / wall:.3f} frames/s; launches {launches}, from backend_step per pipelined "
+                f"frame { {k: round(v / (n - 1), 2) for k, v in inside.items()} }")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    k1, p1, k2 = ({"results": runs[k]["results"]} for k in ("kernels", "plain", "kernels again"))
+    vs_plain, vs_rerun = compare_runs(k1, p1), compare_runs(k1, k2)
+    for what, c in (("kernels vs plain", vs_plain), ("kernels vs kernels rerun", vs_rerun)):
+        m = c["shared"]
+        log(f"pipelined, 10 LM iterations, {what}: same keyframe decisions and tracked counts on "
+            f"the first {m} frames (|dr| there max {max(c['pos_mm'][:m]):.3f} mm); |dr| per frame "
+            f"(mm) {[round(x, 2) for x in c['pos_mm']]}")
+    if not (vs_rerun["shared"] == n and max(vs_rerun["pos_mm"]) == 0.0):
+        raise AssertionError("pipelined, 10 LM iterations: the kernel engine did not repeat itself")
+    if not (vs_plain["shared"] >= SHARED_MIN_FRAMES
+            and max(vs_plain["pos_mm"][:vs_plain["shared"]]) <= POS_TOL_MM):
+        raise AssertionError("pipelined, 10 LM iterations: kernels vs plain out of tolerance")
+
+    # ---- the host synchronisations of one backend_step (frame 12)
+    sites = runs["kernels"]["sites"]
+    fetch = sum(c for (site, _, _), c in sites.items() if site.endswith(" to_numpy_tree"))
+    total = sum(sites.values())
+    log(f"host synchronisations in one backend_step (frame 12, sync debug mode 'warn'): {total}, "
+        f"of them {fetch} in to_numpy_tree fetches, so {total - fetch} besides the fetch; by call site:")
+    for (site, src, step_line), c in sites.most_common():
+        log(f"  {c:4d} x {site}: {src}   (from backend_step line {step_line})")
+
+    # ---- checkpoint round trip on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a.npz"), os.path.join(tmp, "b.npz")
+        save_engine(runs["kernels"]["engine"], a)
+        save_engine(load_engine(VioEngine(cfg, device=dev), a), b)
+        A, B = npz_arrays(a), npz_arrays(b)
+        if A.keys() != B.keys() or not all(np.array_equal(A[k], B[k]) for k in A):
+            raise AssertionError("checkpoint round trip on the card: arrays differ")
+        log(f"checkpoint round trip on the card: {len(A)} arrays equal after save, load into a "
+            f"fresh cuda engine, save")
+
+    # ---- AsyncVioEngine (blocking) at the budget, in turns with the serial engine
+    serial, asyncs, main_launches = [], {"kernels": [], "plain": []}, None
+    for name in ("serial", "plain", "kernels", "kernels", "plain", "serial"):
+        if name == "serial":
+            r = drive_engine("serial, beside the pipelined runs", cfg, events, gt, dev, verbose=False)
+            serial.append(r["fps"])
+            continue
+        eng = VioEngine(cfg, device=dev, **(PLAIN if name == "plain" else {}))
+        main = name == "kernels" and not asyncs["kernels"]
+        reset_counts()  # the pipelined main path: counts from 0 just before
+        out = async_drive(eng, events)
+        launches = read_counts()  # ... and read just after
+        ate = check_pipelined(f"async [{name}]", out["results"], out["fed"], gt,
+                              ATE_FACTOR["budget"], eng)
+        if out["dropped"] or out["fed"] != n:
+            raise AssertionError(f"async [{name}]: {out['dropped']} dropped of {out['fed']} fed")
+        if name == "plain":
+            if any(launches.values()):
+                raise AssertionError(f"async [plain]: a kernel was launched: {launches}")
+        elif not (all(launches[k] > 0 for k in ON_PATH) and launches["hamming_matrix"] == 0):
+            raise AssertionError(f"async [kernels]: B1 and the fused matcher not both launched, or "
+                                 f"the distance matrix was: {launches}")
+        if main:
+            main_launches = launches
+        asyncs[name].append(out["fps"])
+        log(f"AsyncVioEngine [{name}, blocking, budget]: {len(out['results'])} results for "
+            f"{out['fed']} frames, 0 dropped, ATE {ate:.6f} m (bound "
+            f"{ATE_FACTOR['budget'] * JAX_SPLIT_ATE_M:.6f} m), {out['fps']:.3f} frames/s end to end "
+            f"({out['wall']:.2f} s); launches {launches}, per frame "
+            f"{ {k: round(v / n, 2) for k, v in launches.items()} }")
+    log(f"frames/s end to end, in turns (serial, async plain, async kernels, async kernels, async "
+        f"plain, serial): serial {[round(x, 3) for x in serial]}, pipelined kernels "
+        f"{[round(x, 3) for x in asyncs['kernels']]}, pipelined plain "
+        f"{[round(x, 3) for x in asyncs['plain']]}")
+
+    # ---- device-busy share over the first frames, serial and pipelined
+    first = []
+    for ev in events:
+        if ev.kind == "frame" and sum(e.kind == "frame" for e in first) == 6:
+            break
+        first.append(ev)
+    busy_s, wall_s = busy_share(lambda: run_events(VioEngine(cfg, device=dev), first))
+    busy_p, wall_p = busy_share(lambda: async_drive(VioEngine(cfg, device=dev), first))
+    log(f"device busy over the first 6 frames (torch.profiler): serial {100 * busy_s:.1f}% of "
+        f"{wall_s:.2f} s, pipelined (AsyncVioEngine) {100 * busy_p:.1f}% of {wall_p:.2f} s")
+
+    # ---- live mode, fed at the sequence's rate
+    out = async_drive(VioEngine(cfg, device=dev), events, blocking=False, pace=1.0)
+    processed = len(out["results"])
+    if processed + out["dropped"] != out["fed"] or not processed:
+        raise AssertionError(f"live mode: {processed} processed + {out['dropped']} dropped != "
+                             f"{out['fed']} fed")
+    if not all(np.isfinite(r.T_WS.r).all() for r in out["results"]):
+        raise AssertionError("live mode: non-finite pose")
+    log(f"AsyncVioEngine [live, kernels, fed at 10 Hz]: {out['fed']} frames fed, {processed} "
+        f"processed, {out['dropped']} dropped, {out['fps']:.3f} frames/s over {out['wall']:.2f} s")
+    return main_launches
 
 
 def main() -> int:
@@ -796,9 +1121,10 @@ def main() -> int:
 
     timings = kernel_phase(dev)
     launches = slice_phase(dev)
-    engine_launches = engine_phase(dev)
-    launches = {k: launches[k] + engine_launches[k] for k in launches}
-    log(f"launches summed over the backend-step and engine paths: {launches}")
+    engine_launches, inputs = engine_phase(dev)
+    pipelined_launches = pipelined_phase(dev, *inputs)
+    launches = {k: launches[k] + engine_launches[k] + pipelined_launches[k] for k in launches}
+    log(f"launches summed over the backend-step, engine and pipelined paths: {launches}")
 
     record = {"kernels": [
         {"name": "spd_solve_chol", "route": "cuda", "source": "svin_tpu_torch/csrc/spd_solve_chol.cu",

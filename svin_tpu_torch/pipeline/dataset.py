@@ -2,7 +2,9 @@
 
 Counterpart of the JAX package's ``pipeline/dataset.py``: the EuRoC folder
 reader, the sonar intensity-profile range extraction, the synthetic blob
-renderer and its ordered event stream, and the synchronous feeding loop.
+renderer and its ordered event stream, the synchronous feeding loop, and
+``events_from_source``, the apps' dispatch over the synthetic sequence, a
+rosbag2 bag and a EuRoC folder.
 
 The renderer's scene (blob positions, brightness, anisotropic shapes) and the
 IMU noise come from ``numpy.random.Generator`` streams (the JAX package uses
@@ -35,11 +37,14 @@ class SensorEvent:
     """One timestamped event, ordered stream (the app's interleave loop)."""
 
     t: float
-    kind: str  # "imu" | "frame" | "depth" | "sonar"
+    kind: str  # "imu" | "frame" | "depth" | "sonar" | "primitive"
     imu: Optional[Tuple[np.ndarray, np.ndarray]] = None  # (gyro, acc)
     images: Optional[List[np.ndarray]] = None
     depth: Optional[float] = None
     sonar: Optional[Tuple[float, float]] = None  # (range, heading)
+    # robot dead-reckoning odometry (the primitive estimator's pose feeding
+    # the switching estimator) as (r (3,), q (4,)) world pose
+    primitive: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
 
 def sonar_range_from_intensity(
@@ -247,10 +252,16 @@ def synthetic_sequence(
     depth_offset: float = 6.0,
     t_first_frame: float = 0.25,
     degrade_windows: Optional[List[Tuple[float, float]]] = None,
+    primitive_enabled: bool = False,
+    primitive_noise: float = 0.02,
 ) -> Tuple[Iterator[SensorEvent], SyntheticRenderer]:
     """Ordered event stream + its renderer (ground truth via renderer.pose).
     Scene from ``seed``, IMU noise from ``seed + 1``. Frames inside a
-    ``degrade_windows`` interval are rendered nearly featureless."""
+    ``degrade_windows`` interval are rendered nearly featureless.
+    ``primitive_enabled`` adds robot dead-reckoning odometry events before
+    each frame: ground truth plus a random-walk offset of
+    ``primitive_noise`` / sqrt(camera rate) per frame (the featureless noise
+    and the walk share the ``seed + 17`` stream)."""
     params = imu_params if imu_params is not None else ImuParameters()
     renderer = SyntheticRenderer(rig, n_points=n_points, seed=seed, traj=traj, spread=spread,
                                  depth_offset=depth_offset)
@@ -265,6 +276,7 @@ def synthetic_sequence(
 
     def gen():
         ii = 0
+        prim_off = np.zeros(3)
         for t_f in frame_times:
             while ii < len(t_np) and t_np[ii] <= t_f + 1e-9:
                 yield SensorEvent(t=float(t_np[ii]), kind="imu", imu=(gyro[ii], acc[ii]))
@@ -276,6 +288,12 @@ def synthetic_sequence(
                 rng, heading = renderer.sonar_range(float(t_f), T_SSo=sonar_T_SSo)
                 if rng is not None:
                     yield SensorEvent(t=float(t_f), kind="sonar", sonar=(rng, heading))
+            if primitive_enabled:
+                T = renderer.pose(float(t_f))
+                prim_off = prim_off + primitive_noise * noise_rng.standard_normal(3) / np.sqrt(
+                    max(cam_rate, 1.0))
+                yield SensorEvent(t=float(t_f), kind="primitive",
+                                  primitive=(T.r.cpu().numpy() + prim_off, T.q.cpu().numpy()))
             imgs = renderer.render_frame(float(t_f))
             if any(a <= t_f < b for a, b in windows):
                 imgs = [(0.35 + 0.02 * noise_rng.standard_normal(im.shape)).astype(im.dtype)
@@ -304,3 +322,57 @@ def run_events(engine, events, max_frames: int = 10**9):
                 if n >= max_frames:
                     break
     return results
+
+
+def events_from_source(data: str, cfg, rig):
+    """The apps' dataset-source dispatch: ``--synthetic`` (the rendered
+    sequence), a rosbag2 directory or ``.db3`` file, or a EuRoC-layout
+    folder. Environment:
+
+    - synthetic: ``SVIN_SYNTH_DURATION`` (s, default 5), ``SVIN_SYNTH_REVISIT=1``
+      (no linear drift, so the path revisits itself), ``SVIN_SYNTH_DEGRADE``
+      ("t0:t1[,t0:t1...]" featureless stretches),
+      ``SVIN_SYNTH_GYRO_NOISE_SCALE`` (the simulator's gyro noise against the
+      engine's model), ``SVIN_SYNTH_SEED``, ``SVIN_SYNTH_PRIMITIVE=1``
+      (primitive-odometry events);
+    - rosbag2: ``SVIN_CAM_TOPICS`` (comma-separated), ``SVIN_IMU_TOPIC``,
+      ``SVIN_DEPTH_TOPIC``, ``SVIN_SONAR_TOPIC``, ``SVIN_SKIP_FIRST_S``."""
+    if data == "--synthetic":
+        duration = float(os.environ.get("SVIN_SYNTH_DURATION", "5.0"))
+        traj = sim.default_trajectory(scale=0.4, ramp_tau=0.8)
+        if os.environ.get("SVIN_SYNTH_REVISIT", "0") == "1":
+            traj = traj._replace(r_lin=traj.r_lin * 0.0)
+        degrade = []
+        for w in os.environ.get("SVIN_SYNTH_DEGRADE", "").split(","):
+            if ":" in w:
+                a, b = w.split(":")
+                degrade.append((float(a), float(b)))
+        gy_scale = float(os.environ.get("SVIN_SYNTH_GYRO_NOISE_SCALE", "1"))
+        sim_imu = cfg.imu
+        if gy_scale != 1.0:
+            sim_imu = sim_imu._replace(sigma_g_c=sim_imu.sigma_g_c * gy_scale,
+                                       sigma_gw_c=sim_imu.sigma_gw_c * gy_scale)
+        events, _ = synthetic_sequence(
+            rig, duration=duration, cam_rate=cfg.camera_rate, imu_rate=float(cfg.imu.rate),
+            imu_params=sim_imu, traj=traj, seed=int(os.environ.get("SVIN_SYNTH_SEED", "0")),
+            spread=6.0, depth_offset=3.0, t_first_frame=0.12,
+            depth_enabled=cfg.is_depth_used, sonar_enabled=cfg.is_sonar_used,
+            sonar_T_SSo=cfg.T_SSo if cfg.is_sonar_used else None,
+            degrade_windows=degrade or None,
+            primitive_enabled=os.environ.get("SVIN_SYNTH_PRIMITIVE", "0") == "1",
+        )
+        return events
+    if data.endswith(".db3") or os.path.exists(os.path.join(data, "metadata.yaml")):
+        from .rosbag import read_rosbag
+
+        n = rig.num_cameras
+        cam_topics = os.environ.get(
+            "SVIN_CAM_TOPICS", ",".join(f"/cam{i}/image_raw" for i in range(n))).split(",")
+        return read_rosbag(
+            data, cam_topics=cam_topics,
+            imu_topic=os.environ.get("SVIN_IMU_TOPIC", "/imu"),
+            depth_topic=os.environ.get("SVIN_DEPTH_TOPIC") or None,
+            sonar_topic=os.environ.get("SVIN_SONAR_TOPIC") or None,
+            skip_first_s=float(os.environ.get("SVIN_SKIP_FIRST_S", "0")),
+        )
+    return read_euroc_folder(data, num_cams=rig.num_cameras)

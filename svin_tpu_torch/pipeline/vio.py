@@ -1,7 +1,7 @@
 """The VIO engine: deterministic host pipeline around the device programs.
 
-Counterpart of the serial path of the JAX package's ``pipeline/vio.py``
-(``VioEngine.add_frame``): a single-threaded, deterministic stage sequence
+Counterpart of the JAX package's ``pipeline/vio.py``. The serial path
+(``VioEngine.add_frame``) is a single-threaded, deterministic stage sequence
 per frame:
 
   add_imu/depth/sonar → buffered;  add_frame:
@@ -22,21 +22,35 @@ fetch). Device programs are the pure functions of ``pipeline/programs.py``;
 ``solve`` and ``matcher`` are threaded through to them, so the same engine
 runs with the CUDA kernels (the defaults, on a CUDA device) or with their
 plain versions. The engine runs on ``cuda`` unless the caller names another
-device (the CPU tests pass ``device="cpu"``). ``add_frame`` turns TF32 off for its duration.
+device (the CPU tests pass ``device="cpu"``). ``add_frame``,
+``frontend_stage`` and ``backend_step`` turn TF32 off for their duration
+(``_float32_matmuls``, safe with two threads inside).
+
+The pipelined path splits a frame in two (driven by ``AsyncVioEngine`` in
+``pipeline/async_vio.py``, or on one thread):
+
+- ``frontend_stage``: preprocess + detect + describe at an attitude
+  dead-reckoned on the host from the newest window state. It touches no
+  mutable engine state and runs its device work on a CUDA stream of its
+  own, so it can run on a second thread beside ``backend_step``.
+- ``backend_step``: keeps one optimize(+marginalize) program in flight.
+  Frame k+1's IMU propagation, map matching and speculative stereo are
+  queued behind frame k's solve, reading its un-fetched window; one
+  ``to_numpy_tree`` then fetches all of it; frame k is finalized and frame
+  k+1's solve queued without a fetch. Results come out one frame late;
+  ``backend_flush`` drains the last.
 
 RANSAC samples are drawn on the device by ``draw_hypotheses(seed, sub,
 valid, num_hypotheses, sample_size)``, seeded from the same host
 ``RandomState(1234)`` sequence as the JAX engine's PRNG keys (``sub`` is
 None for the map-matching RANSAC, 0/1 for the two halves of the temporal
 bootstrap's split key); a test replaces it with the JAX engine's draws.
-
-Not ported here: the pipelined API (``frontend_stage``, ``backend_step``,
-``backend_flush``) and the asynchronous engine.
 """
 from __future__ import annotations
 
 import contextlib
 import logging
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
@@ -62,29 +76,51 @@ TEMPORAL_IMU_OVERLAP = 0.02  # s (reference ThreadedKFVio.cpp:87)
 _LOG = logging.getLogger("svin_tpu_torch")
 
 
-def _as_upload(img, device):
-    """Host image → the upload form: 8-bit images pass through, float images
-    in [0, 1] are quantized to uint8 (what a mono8 camera delivers); tensors
-    already on the engine's device pass through untouched."""
-    if isinstance(img, torch.Tensor):
-        return img.to(device)
+def _as_uint8(img) -> np.ndarray:
+    """Host image → uint8: 8-bit images pass through, float images in [0, 1]
+    are quantized (what a mono8 camera delivers)."""
     a = np.asarray(img)
     if a.dtype != np.uint8:
         a = np.clip(a * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)
-    return torch.as_tensor(a, device=device)
+    return a
+
+
+def _as_upload(img, device):
+    """Host image → the upload form, a uint8 tensor on ``device``
+    (``_as_uint8``); tensors already on the engine's device pass through
+    untouched."""
+    if isinstance(img, torch.Tensor):
+        return img.to(device)
+    return torch.as_tensor(_as_uint8(img), device=device)
+
+
+_TF32_LOCK = threading.Lock()
+_tf32_inside = 0  # threads (or nested blocks) inside _float32_matmuls
+_tf32_saved = None  # the caller's flags, saved by the first one in
 
 
 @contextlib.contextmanager
 def _float32_matmuls():
     """float32 matmuls and convolutions in full float32 (TF32 off) for the
-    block, restoring the caller's settings after."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    block. The flags are process-global, so blocks on several threads share
+    one entry count: the first in saves the caller's settings and turns TF32
+    off, the last out restores them."""
+    global _tf32_inside, _tf32_saved
+    with _TF32_LOCK:
+        if _tf32_inside == 0:
+            _tf32_saved = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _tf32_inside += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        with _TF32_LOCK:
+            _tf32_inside -= 1
+            if _tf32_inside == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _tf32_saved
 
 
 def torch_draw(seed: int, sub: Optional[int], valid: torch.Tensor, num_hypotheses: int,
@@ -113,6 +149,26 @@ class FrameResult:
 
 
 @dataclass
+class _PendingOpt:
+    """An in-flight optimize(+marginalize) program of the pipelined
+    backend: its un-fetched outputs and the host context that finalizes the
+    frame once the next backend step (or the flush) fetches them."""
+
+    opt_out: tuple  # the opt program's output tensors
+    win_dev: object  # its window (after the fused marginalization), for chaining
+    victim: Optional[int]
+    lm_valid_before: Optional[np.ndarray]
+    slot_post: int  # the frame's slot after the fused marginalization
+    t: float
+    images: list
+    is_kf: bool
+    n_tracked: int
+    n_new: int
+    t_dispatch: float
+    static_iters: int = 0
+
+
+@dataclass
 class _FrameData:
     """Host-side per-frame record for matching (per camera arrays)."""
 
@@ -126,6 +182,9 @@ class _FrameData:
     # preprocessed cam0 image, uint8, left on the device until a keyframe
     # export fetches it
     image0: Optional[torch.Tensor] = None
+    # recorded on the frontend stream after the frame's device work (CUDA
+    # frames of frontend_stage); the backend's stream waits on it
+    ready: Optional[torch.cuda.Event] = None
 
 
 class VioEngine:
@@ -197,6 +256,13 @@ class VioEngine:
         self.imu_t: List[float] = []
         self.imu_gyro: List[np.ndarray] = []
         self.imu_acc: List[np.ndarray] = []
+        # pipelined-backend state: the in-flight optimize of the previous
+        # frame; the lock serializing IMU-buffer access between the feeding
+        # thread and the frontend/backend stages; the frontend's own stream
+        self._pending: Optional[_PendingOpt] = None
+        self._imu_mutex = threading.Lock()
+        self._fe_stream = (torch.cuda.Stream(device=self.device)
+                           if self.device.type == "cuda" else None)
         self.depth_buffer: List[tuple] = []  # (t, depth)
         self.sonar_buffer: List[tuple] = []  # (t, range, heading)
         self.first_depth: Optional[float] = None
@@ -231,7 +297,10 @@ class VioEngine:
     # ------------------------------------------------------------ transfer
     def _dev(self, a, dtype=None) -> torch.Tensor:
         """Host array → tensor on the engine's device (floats in the
-        engine's dtype, uint32 words as their int32 view)."""
+        engine's dtype, uint32 words as their int32 view). A tensor (an
+        un-fetched program output) passes through."""
+        if isinstance(a, torch.Tensor):
+            return a
         a = np.asarray(a)
         if a.dtype == np.uint32:
             a = a.view(np.int32)
@@ -245,11 +314,12 @@ class VioEngine:
 
     # ------------------------------------------------------------------ IMU
     def add_imu_measurement(self, t: float, gyro, acc) -> None:
-        self.imu_t.append(float(t))
-        self.imu_gyro.append(np.asarray(gyro, float))
-        self.imu_acc.append(np.asarray(acc, float))
-        if len(self.imu_t) > 10000:  # trim very old IMU
-            del self.imu_t[:2000], self.imu_gyro[:2000], self.imu_acc[:2000]
+        with self._imu_mutex:
+            self.imu_t.append(float(t))
+            self.imu_gyro.append(np.asarray(gyro, float))
+            self.imu_acc.append(np.asarray(acc, float))
+            if len(self.imu_t) > 10000:  # trim very old IMU
+                del self.imu_t[:2000], self.imu_gyro[:2000], self.imu_acc[:2000]
 
     def add_depth_measurement(self, t: float, depth: float) -> None:
         if self.first_depth is None:
@@ -266,13 +336,14 @@ class VioEngine:
         entries so that its compiled scan sees few distinct lengths; a
         masked segment changes nothing, and eager PyTorch compiles nothing,
         so here the slice has its own length and every sample is valid."""
-        t = np.asarray(self.imu_t)
-        m = (t >= t0 - TEMPORAL_IMU_OVERLAP) & (t <= t1 + TEMPORAL_IMU_OVERLAP)
-        idx = np.nonzero(m)[0]
-        if len(idx) < 2:
-            return None
-        return (t[idx], np.stack([self.imu_gyro[i] for i in idx]),
-                np.stack([self.imu_acc[i] for i in idx]), np.ones(len(idx), bool))
+        with self._imu_mutex:
+            t = np.asarray(self.imu_t)
+            m = (t >= t0 - TEMPORAL_IMU_OVERLAP) & (t <= t1 + TEMPORAL_IMU_OVERLAP)
+            idx = np.nonzero(m)[0]
+            if len(idx) < 2:
+                return None
+            return (t[idx], np.stack([self.imu_gyro[i] for i in idx]),
+                    np.stack([self.imu_acc[i] for i in idx]), np.ones(len(idx), bool))
 
     def _preintegrate(self, t0: float, t1: float, bias):
         """Host-numpy Preintegral over [t0, t1] (None without IMU data)."""
@@ -405,6 +476,199 @@ class VioEngine:
             with Timer("2.0 frame_total"):
                 return self._track(t, images)
 
+    # ------------------------------------------------- pipelined backend
+    def frontend_stage(self, t: float, images):
+        """Stage 1 of the pipelined engine: preprocess + detect + describe,
+        the gravity-aligned extraction direction from an attitude
+        dead-reckoned on the host. Touches no mutable engine state, so it
+        may run on a second thread beside ``backend_step``; on CUDA its
+        device work runs on the engine's frontend stream. Returns (shifted
+        t, frame record)."""
+        t = float(t) - self.cfg.image_delay
+        T_att = self._attitude_prediction(t)
+        with _float32_matmuls(), self._frontend_stream(images):
+            fd = self._new_frame(t, images, *self._detect_describe(images, T_att))
+            if self._fe_stream is not None:
+                # the backend's stream waits on this before reading image0
+                fd.ready = torch.cuda.Event()
+                fd.ready.record(self._fe_stream)
+        return t, fd
+
+    @contextlib.contextmanager
+    def _frontend_stream(self, images):
+        """The frontend stream as the calling thread's current stream (CUDA
+        engines). It waits on the caller's stream only for images already
+        on the device (the caller's own work made them); host images upload
+        on the frontend stream itself."""
+        if self._fe_stream is None:
+            yield
+            return
+        if any(isinstance(im, torch.Tensor) and im.device.type == "cuda" for im in images):
+            self._fe_stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._fe_stream):
+            yield
+
+    def _attitude_prediction(self, t: float) -> Transformation:
+        """Attitude at ``t`` by integrating buffered gyro from the newest
+        window state on the host (enough for the descriptor's gravity
+        direction; no device round trip, no wait on the backend)."""
+        slot = max(self.n_states - 1, 0)
+        w = self.window  # local reference: the backend rebinds it atomically
+        r = w.r[slot].copy()
+        q = w.q[slot].copy()
+        bg = w.speed_bias[slot][3:6].copy()
+        t0 = float(w.timestamp[slot])
+        with self._imu_mutex:
+            tt = np.asarray(self.imu_t)
+            sel = np.nonzero((tt > t0) & (tt <= t))[0]
+            ts = tt[sel]
+            gy = [self.imu_gyro[i] for i in sel]
+        t_prev = t0
+        for ti, wg in zip(ts, gy):
+            dt = float(ti) - t_prev
+            if dt <= 0:
+                continue
+            phi = (wg - bg) * dt
+            ang = float(np.linalg.norm(phi))
+            half = 0.5 * ang
+            fac = 0.5 if ang < 1e-12 else np.sin(half) / ang
+            dq = np.concatenate([phi * fac, [np.cos(half)]])
+            q = npq.normalize(npq.multiply(q, dq))
+            t_prev = float(ti)
+        return Transformation(r=r, q=q)
+
+    def backend_step(self, t: float, images, fd: _FrameData) -> Optional[FrameResult]:
+        """Stages 2-7 for one detected frame, pipelined: the previous
+        frame's optimize(+marginalize) program is still in flight; this
+        frame's IMU propagation, map matching and speculative stereo are
+        queued behind it on the device, reading its un-fetched window, and
+        one ``to_numpy_tree`` fetches everything. The previous frame is then
+        finalized, this frame's host stages run on the now-consistent
+        window, and its solve is queued without a fetch.
+
+        As the JAX engine's: the match stage is dispatched on every frame
+        (one ``_rng`` draw, and a miss-streak bump with no landmarks); the
+        landmark covariances and descriptors, and the speed used for the
+        gate, are the host's from before the previous frame's solve; the
+        LM-budget EMA times dispatch to the next fetch.
+
+        Returns the previous frame's result (None on the first pipelined
+        frame); ``backend_flush`` drains the last one."""
+        with _float32_matmuls():
+            if self.n_states == 0:
+                return self._initialize(t, images)
+            if self._pending is None and self.n_states >= self.wcfg.num_states:
+                # restored sessions only: steady state marginalizes inside
+                # the fused program
+                self._apply_marginalization_policy()
+            if fd.ready is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(fd.ready)
+                fd.image0.record_stream(stream)
+
+            p = self._pending
+            if p is not None:
+                prev_slot, t_prev, w_dev = p.slot_post, p.t, p.win_dev
+                base_r, base_q = w_dev.r[prev_slot], w_dev.q[prev_slot]
+                base_sb = w_dev.speed_bias[prev_slot]
+                hp_dev, lmv_dev = w_dev.hp_W, w_dev.lm_valid
+            else:
+                prev_slot = self.n_states - 1
+                t_prev = float(self.window.timestamp[prev_slot])
+                base_r, base_q = self.window.r[prev_slot], self.window.q[prev_slot]
+                base_sb = self.window.speed_bias[prev_slot]
+                hp_dev = lmv_dev = None
+
+            d = self._dev
+            sl = self._imu_slice(t_prev, t)
+            preint_out = None
+            if sl is not None:
+                ts, gy, ac, mask = sl
+                preint_out = programs.preint_prop(
+                    d(ts), d(gy), d(ac), d(mask), d(t_prev), d(t), d(base_r), d(base_q),
+                    d(base_sb), self.cfg.imu,
+                )
+                T_r_m, T_q_m = preint_out[1].r, preint_out[1].q
+            else:
+                T_r_m, T_q_m = base_r, base_q
+
+            # association + speculative stereo, queued behind the solve
+            m_out = self._dispatch_match(fd, T_r_m, T_q_m, hp_W=hp_dev, lm_valid=lmv_dev)
+            s_out = self._dispatch_stereo(fd, T_r_m, T_q_m, hp_W=hp_dev, lm_valid=lmv_dev)
+            with Timer("2.4.2 match_fetch"):
+                opt_f, pre_f, m_f, s_f = to_numpy_tree(
+                    (None if p is None else p.opt_out, preint_out, m_out, s_out))
+            prev_result = self._finalize_pending(opt_f) if p is not None else None
+
+            # ---- this frame's host stages on the now-consistent window ----
+            slot = self.n_states
+            if pre_f is not None:
+                pre, T_h, sb_pred, W_imu = pre_f
+                T_pred = Transformation(r=np.array(T_h.r), q=np.array(T_h.q))
+                sb_pred = np.array(sb_pred)
+            else:
+                pre = W_imu = None
+                T_pred = Transformation(r=np.array(to_numpy_tree(base_r)),
+                                        q=np.array(to_numpy_tree(base_q)))
+                sb_pred = np.array(to_numpy_tree(base_sb))
+            self._create_state(slot, t, t_prev, T_pred, sb_pred, fd, pre, W_imu)
+            n_tracked = self._apply_match(m_f, slot, fd) if m_f is not None else 0
+            is_kf, n_new = self._keyframe_decision(slot, t, fd, T_pred, s_f)
+
+            # ---- queue this frame's solve; it is fetched on the next step ----
+            n_it = self._iteration_budget()
+            victim = self._choose_marg_victim() if self.n_states >= self.wcfg.num_states else None
+            lm_valid_before = self.window.lm_valid.copy() if victim is not None else None
+            prog, bound = self._opt_program_for(n_it, victim is not None)
+            with Timer("3.1.1 opt_dispatch"):
+                w_dev, f_dev = self._up(self.window), self._up(self.factors)
+                opt_out = (prog(w_dev, f_dev, n_it) if victim is None
+                           else prog(w_dev, f_dev, n_it, victim))
+            self._pending = _PendingOpt(
+                opt_out=opt_out, win_dev=opt_out[0], victim=victim,
+                lm_valid_before=lm_valid_before,
+                slot_post=slot - (1 if victim is not None else 0), t=t, images=images,
+                is_kf=is_kf, n_tracked=n_tracked, n_new=n_new, t_dispatch=time.perf_counter(),
+                static_iters=bound,
+            )
+            return prev_result
+
+    def _finalize_pending(self, opt_f) -> FrameResult:
+        """Apply a fetched in-flight optimize and emit its frame's result."""
+        p = self._pending
+        self._pending = None
+        if p.victim is None:
+            win_h, cost_h, iters_h, lm_cov_h, pr_valid, pr_err = opt_f
+            fac_h = None
+        else:
+            win_h, fac_h, cost_h, iters_h, lm_cov_h, pr_valid, pr_err = opt_f
+        self._apply_opt_results(win_h, fac_h, cost_h, iters_h, lm_cov_h, pr_valid, pr_err,
+                                p.victim, p.lm_valid_before, time.perf_counter() - p.t_dispatch,
+                                static_iters=p.static_iters)
+        slot = p.slot_post
+        self.frame_count += 1
+        T_WS = self.window.pose(slot)
+        result = FrameResult(
+            timestamp=p.t, T_WS=Transformation(r=T_WS.r.copy(), q=T_WS.q.copy()),
+            speed_bias=self.window.speed_bias[slot].copy(), is_keyframe=p.is_kf,
+            num_tracked=p.n_tracked, num_new_landmarks=p.n_new, cost=self._cost_last,
+            keyframe_export=self._timed_export(slot, p.images) if p.is_kf else None,
+            lm_iterations=self._lm_iterations_last,
+        )
+        self.trajectory.append((p.t, result.T_WS.r, result.T_WS.q))
+        if self.state_callback:
+            self.state_callback(result)
+        if result.keyframe_export is not None and self.keyframe_callback:
+            self.keyframe_callback(result.keyframe_export)
+        return result
+
+    def backend_flush(self) -> Optional[FrameResult]:
+        """Fetch and finalize the last in-flight frame (end of stream)."""
+        if self._pending is None:
+            return None
+        with _float32_matmuls():
+            return self._finalize_pending(to_numpy_tree(self._pending.opt_out))
+
     def _iteration_budget(self) -> int:
         """Per-frame LM iteration budget from the config's real-time
         envelope (timeLimit / minIterations) and the measured per-iteration
@@ -444,11 +708,18 @@ class VioEngine:
         return 1e-2 * max(1.0, v) ** 2
 
     def _initialize(self, t: float, images) -> Optional[FrameResult]:
-        if len(self.imu_t) < 3:
-            return None  # wait for IMU
+        # the gravity direction from the last 20 samples up to the frame's
+        # stamp: a threaded feeder may have buffered IMU past the frame (the
+        # JAX engine averages the buffer's tail whatever its time; a serial
+        # feed holds nothing past the frame, and there the two agree)
+        with self._imu_mutex:
+            n_upto = int(np.searchsorted(self.imu_t, t + self.cfg.image_delay + 1e-9, side="right"))
+            if n_upto < 3:
+                return None  # wait for IMU
+            acc_mean = np.mean(self.imu_acc[max(0, n_upto - 20):n_upto], axis=0)
         self._lm_desc = np.zeros((self.wcfg.num_landmarks, 8), np.int32)
         self._lm_cov = np.tile(np.eye(3) * self._LM_COV_DEFAULT, (self.wcfg.num_landmarks, 1, 1))
-        acc_mean = self._dev(np.mean(self.imu_acc[-20:], axis=0))
+        acc_mean = self._dev(acc_mean)
         T0_h = to_numpy_tree(init_pose_from_imu(acc_mean))
         T0 = Transformation(r=np.array(T0_h.r), q=np.array(T0_h.q))
         slot = 0
@@ -526,15 +797,20 @@ class VioEngine:
         so.target_W[slot] = lms[ok].mean(axis=0)
         so.valid[slot] = True
 
-    def _dispatch_stereo(self, fd: _FrameData, T_r, T_q):
+    def _dispatch_stereo(self, fd: _FrameData, T_r, T_q, hp_W=None, lm_valid=None):
         """Dispatch the stereo match+triangulate program (speculatively, on
         every frame: ``_apply_stereo`` drops pairs the match stage claimed,
-        and the in-program dedup kills near-duplicates of the map)."""
+        and the in-program dedup kills near-duplicates of the map). ``T_r``,
+        ``T_q``, ``hp_W`` and ``lm_valid`` may be device tensors (the
+        un-fetched IMU prediction and optimize output); the landmark tables
+        default to the host window's."""
         if self.rig.num_cameras < 2:
             return None
         un_a = fd.kp_landmark[0] < 0
         un_b = fd.kp_landmark[1] < 0
         d = self._dev
+        hp_W = self.window.hp_W if hp_W is None else hp_W
+        lm_valid = self.window.lm_valid if lm_valid is None else lm_valid
         return programs.stereo_match_tri(
             self.rig_p.camera(0), self.rig_p.camera(1), self._RAY_SIGMA_BASE,
             self._POSE_VAR_STEREO,
@@ -543,7 +819,7 @@ class VioEngine:
             d(fd.kp_octave[0]), d(fd.kp_octave[1]), d(T_r), d(T_q),
             d(self.window.ext_r[0]), d(self.window.ext_q[0]),
             d(self.window.ext_r[1]), d(self.window.ext_q[1]),
-            d(self.window.hp_W), d(self.window.lm_valid), matcher=self.matcher,
+            d(hp_W), d(lm_valid), matcher=self.matcher,
         )
 
     def _apply_stereo(self, fetched, slot: int, fd: _FrameData) -> int:
@@ -637,22 +913,28 @@ class VioEngine:
         self._add_observations(rows)
         return total
 
-    def _dispatch_match(self, fd: _FrameData, T_r, T_q):
+    def _dispatch_match(self, fd: _FrameData, T_r, T_q, hp_W=None, lm_valid=None, lm_cov=None):
         """Dispatch the association stage (projection-gated matching + 3D-2D
         RANSAC + reprojection acceptance), with the velocity-scaled pose
         variance inflated by the tracking-miss streak and each landmark's
-        own covariance in the gate."""
+        own covariance in the gate. ``T_r``, ``T_q`` and the landmark tables
+        ``hp_W``, ``lm_valid``, ``lm_cov`` may be device tensors (un-fetched
+        program outputs, which the pipelined backend chains behind the
+        in-flight solve); the tables default to the host's."""
         slot_prev = self.last_kf_slot if self.last_kf_slot is not None else 0
         pos_var = self._pose_var_temporal(slot_prev) * (4.0 ** min(self._track_miss_streak, 2))
         kp_sigma = 0.8 * np.stack([np.ldexp(1.0, fd.kp_octave[ci]) for ci in range(len(fd.kp_uv))])
         free = np.stack([fd.kp_landmark[ci] < 0 for ci in range(len(fd.kp_uv))])
         seed = self._rng.randint(0, 2**31)
         d = self._dev
+        hp_W = self.window.hp_W if hp_W is None else hp_W
+        lm_valid = self.window.lm_valid if lm_valid is None else lm_valid
+        lm_cov = self._lm_cov if lm_cov is None else lm_cov
         with Timer("2.4.1 match_dispatch"):
             return programs.match_stage(
                 self.rig_p, self._focal[0],
                 d(np.stack(fd.kp_uv)), d(np.stack(fd.kp_desc)), d(np.stack(fd.kp_valid)), d(free),
-                d(self.window.hp_W), d(self.window.lm_valid), d(self._lm_desc), d(self._lm_cov),
+                d(hp_W), d(lm_valid), d(self._lm_desc), d(lm_cov),
                 d(T_r), d(T_q), d(self.window.ext_r), d(self.window.ext_q), d(kp_sigma),
                 d(pos_var),
                 lambda v, H, s: self.draw_hypotheses(seed, None, v, H, s),

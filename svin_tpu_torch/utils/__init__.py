@@ -1,3 +1,4 @@
+from . import timebase
 from .timing import Timer, Timing
 
-__all__ = ["Timer", "Timing"]
+__all__ = ["timebase", "Timer", "Timing"]

@@ -1,12 +1,14 @@
 """Trajectory error of the VIO engine at the shipped underwater configuration,
 JAX package and PyTorch port on identical events, on the CPU in float32.
 
-The reference figure for ``chip_smoke.py``'s ATE bound. Three steps, each
-process importing only the package it runs:
+The reference figures for ``chip_smoke.py``'s ATE bounds. Each process
+imports only the package it runs:
 
     python3 tools/engine_ate_reference.py write EVENTS.npz
     JAX_PLATFORMS=cpu python3 tools/engine_ate_reference.py jax EVENTS.npz
+    JAX_PLATFORMS=cpu python3 tools/engine_ate_reference.py jax-split EVENTS.npz
     python3 tools/engine_ate_reference.py torch EVENTS.npz
+    python3 tools/engine_ate_reference.py torch-split EVENTS.npz
 
 ``write`` renders the port's synthetic sequence (``chip_smoke.py``'s:
 configs/underwater_sonar_depth.yaml, two 800x600 cameras, start-from-rest
@@ -14,7 +16,11 @@ trajectory, 10 Hz for 3 s, depth and sonar events, seed 0) and stores its
 events as uint8 images (the engines quantize float images to uint8 before
 upload, so this loses nothing) with the renderer's ground truth. ``jax`` and
 ``torch`` feed the events to that package's ``VioEngine`` in float32 on the
-CPU and print the SE(3)-aligned ATE and per-frame tracking. Both run with
+CPU and print the SE(3)-aligned ATE and per-frame tracking: ``jax`` and
+``torch`` through the serial ``add_frame``, ``jax-split`` and ``torch-split``
+through the pipelined engine's split steps on one thread (``frontend_stage``
+then ``backend_step`` per frame, ``add_frame`` for the frame that
+initializes, ``backend_flush`` at the end). All run with
 ``time_limit`` 0, a fixed 10 LM iterations per frame: the config's
 ``timeLimit`` budget would follow each host's wall clock and make the
 figure depend on the machine.
@@ -62,9 +68,14 @@ def write(path):
     print(f"wrote {len(imgs)} frames, {len(kinds)} events to {path}")
 
 
-def replay(engine, path):
+def replay(engine, path, split=False):
     d = np.load(path)
     results, walls = [], []
+
+    def keep(r):
+        if r is not None:
+            results.append(r)
+
     for kind, t, v in zip(d["kinds"], d["t"], d["vals"]):
         if kind == "imu":
             engine.add_imu_measurement(t, v[:3], v[3:])
@@ -73,11 +84,16 @@ def replay(engine, path):
         elif kind == "sonar":
             engine.add_sonar_measurement(t, v[0], v[1])
         else:
+            images = list(d["images"][int(v[0])])
             t0 = time.perf_counter()
-            r = engine.add_frame(t, list(d["images"][int(v[0])]))
+            if split and engine.n_states > 0:
+                t_s, fd = engine.frontend_stage(t, images)
+                keep(engine.backend_step(t_s, images, fd))
+            else:
+                keep(engine.add_frame(t, images))
             walls.append(time.perf_counter() - t0)
-            if r is not None:
-                results.append(r)
+    if split:
+        keep(engine.backend_flush())
     est = np.stack([np.asarray(r.T_WS.r) for r in results])
     gt = d["gt"][len(d["gt"]) - len(results):]
     return results, est, gt, walls
@@ -97,7 +113,7 @@ def main():
     mode, path = sys.argv[1], sys.argv[2]
     if mode == "write":
         return write(path)
-    if mode == "jax":
+    if mode in ("jax", "jax-split"):
         import jax
 
         # a CPU run: a backend plugin registered at interpreter start-up
@@ -129,9 +145,9 @@ def main():
         cfg = load_config(CONFIG)
         cfg.time_limit = 0.0
         engine = VioEngine(cfg, dtype=torch.float32, device="cpu")
-    results, est, gt, walls = replay(engine, path)
+    results, est, gt, walls = replay(engine, path, split=mode.endswith("-split"))
     report(mode, results, est, gt, ate_rmse)
-    print(f"  add_frame wall: median {np.median(walls) * 1e3:.1f} ms on this host's CPU")
+    print(f"  wall per frame: median {np.median(walls) * 1e3:.1f} ms on this host's CPU")
 
 
 if __name__ == "__main__":
