@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch/CUDA port: build its CUDA kernels, hold each to
 its plain PyTorch version on the card, then drive the VIO backend's
-per-frame step (projection-gated map matching + optimize / marginalize /
-prune) at the shipped engine shapes and check what comes out.
+per-frame step, the engine (serial and pipelined), the loop closer and the
+offline app at the shipped shapes and check what comes out.
 
     python3 chip_smoke.py
 
@@ -110,6 +110,34 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
    - One live-mode run (``blocking=False``) fed at the sequence's 10 Hz:
      processed and dropped frames add up to the frames fed.
 
+6. Loop closure.
+   - The two kernels at the loop closer's shapes, each bit for bit against
+     its plain version with planted ties and timed in turns: the distance
+     matrix at the product vocabulary's word assignment, (2, 1012, 4) x
+     (2, 256, 4) (a keyframe's 512 window + 500 fresh descriptors, both
+     128-bit halves in one launch, a per-batch b), then argmin, beside one
+     fp16 ``matmul`` of the unpacked ±1 bits; the fused matcher at
+     verification, (512, 8) x (500, 8), distance 80, mutual, no gate.
+   - The revisit drive of the JAX tests at full width (``revisit_exports``:
+     the config's 800x600 camera, 12 traverse keyframes and 3 revisits with
+     accumulating drift, rendered on the card) through ``LoopCloser`` with
+     ``RECENCY_EXCLUSION`` 5: with the kernels (the loop path's launch
+     counts from 0 just before, read just after) and with the plain
+     versions under deterministic algorithms: loops verified, the same
+     loops and inlier counts, the optimized path's RMSE below 0.6 x the
+     drifted one; ``add_keyframe`` ms per keyframe and its stages; then once
+     in 6-DoF (the same loops), replayed by a float64 closer on the CPU on
+     the card's descriptors and P3P draws: the same loops, and the card's
+     optimized path within 3 mm of the reference's and within a tenth of how
+     far the reference's solve moved it. A P3P RANSAC and a 4-DoF solve
+     probed alone (host ms, traced device ms and operations).
+   - The entry point: ``apps.run_synchronous.main`` at the underwater
+     configuration on a short synthetic sequence with ``--save-checkpoint``,
+     then a run that ``--resume``s it: a result for every frame, every
+     output written and parsed, every healthy keyframe taken by the closer
+     and through the distance-matrix kernel once. The kernels' launches in
+     the closer's ``add_keyframe`` are counted apart from the app's engine.
+
 The second-to-last line of standard output is the kernels' JSON record; the
 last is ``{"ok": true, "device": {...}}``.
 """
@@ -133,6 +161,7 @@ from svin_tpu_torch.convert import tree_to
 from svin_tpu_torch.estimator import WindowConfig, optimize
 from svin_tpu_torch.kinematics import Transformation
 from svin_tpu_torch.evaluation import ate_rmse
+from svin_tpu_torch.loopclosure.loop_closure import DESC_DIST_LOOP
 from svin_tpu_torch.ops import cuda_lib, hamming, solve
 from svin_tpu_torch.pipeline import (BackendStep, VioEngine, load_config, programs, run_events,
                                      synthetic_sequence)
@@ -245,7 +274,7 @@ def in_turns(fns: dict, rounds: int = 3) -> dict:
             for k, v in got.items()}
 
 
-def traced_ms(fn, n: int = 50, tries: int = 4) -> tuple:
+def traced_ms(fn, n: int = 50, tries: int = 4, agree: bool = True) -> tuple:
     """(device ms per call, device operations per call) of ``fn`` from a
     ``torch.profiler`` trace of ``n`` calls: the summed durations of the
     kernels, copies and fills the card ran for it, the gaps between them not
@@ -253,7 +282,8 @@ def traced_ms(fn, n: int = 50, tries: int = 4) -> tuple:
     whose event time reads the host's dispatch once the launch queue is
     full. A trace can miss device events, so traces are taken until two in
     a row hold the same number of them, a multiple of ``n`` (at most
-    ``tries``); (None, 0) if none do."""
+    ``tries``); (None, 0) if none do. With ``agree`` False, the first
+    trace's numbers (for a function whose operation count varies)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -266,7 +296,7 @@ def traced_ms(fn, n: int = 50, tries: int = 4) -> tuple:
             torch.cuda.synchronize()
         on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         count = len(on_card)
-        if count and count % n == 0 and count == last:
+        if count and (not agree or (count % n == 0 and count == last)):
             return sum(e.time_range.elapsed_us() for e in on_card) / n / 1e3, count / n
         last = count
     return None, 0
@@ -1096,6 +1126,484 @@ def pipelined_phase(dev, cfg, events, gt) -> dict:
     return main_launches
 
 
+# ------------------------------------------------------------ loop closure
+RETRIEVAL_K = 512 + 500  # WINDOW_CAP window descriptors + N_EXTRA_CORNERS fresh corners
+LOOP_RECENCY = 5  # RECENCY_EXCLUSION for the short revisit, as the JAX tests set it
+# the entry point's synthetic sequence, seconds: at 20 Hz the engine's first
+# keyframes track ~20% of their keypoints, and the health gate (new-keypoint
+# ratio < 0.75) takes one of the first five
+ENTRY_DURATION_S = "3.0"
+# the card's 6-DoF revisit path against a float64 CPU closer's
+REF_TOL_M = 0.003
+LOOP_STAGES = ("lc.1 describe_detect", "lc.2 bow", "lc.3 query", "lc.4 verify", "lc.4.1 match",
+               "lc.4.2 p3p", "lc.5 pose_graph")
+
+
+def loop_kernel_phase(dev) -> dict:
+    """The two kernels at the loop path's shapes: the distance matrix at the
+    product vocabulary's word assignment, (2, 1012, 4) x (2, 256, 4) (both
+    128-bit halves in one launch, a per-batch b), then argmin; the fused
+    matcher at loop verification, (512, 8) x (500, 8), valid masks, no gate,
+    distance 80, mutual. Each bit for bit against its plain version on
+    seeded inputs with planted ties, then timed in turns."""
+    rng = np.random.default_rng(11)
+    words = lambda shape: torch.as_tensor(  # noqa: E731
+        rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32).view(np.int32),
+        device=dev)
+    out = {}
+    # ---- retrieval: ties planted (codewords repeated, descriptors on them)
+    desc, vocab = words((RETRIEVAL_K, 8)), words((2, 256, 4))
+    vocab[:, 200:] = vocab[:, 100:156]
+    desc[:56] = torch.cat([vocab[0, 100:156], vocab[1, 100:156]], dim=1)
+    a = torch.stack([desc[:, :4], desc[:, 4:]])
+    d = hamming.hamming_matrix_cuda(a, vocab)
+    want = hamming.hamming_matrix_plain(a, vocab)
+    torch.cuda.synchronize()
+    w_k, w_p = torch.argmin(d, dim=-1), torch.argmin(want, dim=-1)
+    if not (torch.equal(d, want) and torch.equal(w_k, w_p) and bool((w_k[:, :56] < 200).all())):
+        raise AssertionError("distance-matrix kernel != plain at the retrieval shape")
+    pa, pbt = pm1_bits(a), pm1_bits(vocab).transpose(-1, -2).contiguous()  # (2,1012,128), (2,128,256)
+    lib = lambda: torch.matmul(pa, pbt)  # noqa: E731
+    if not torch.equal(((128 - lib().float()) / 2).to(torch.int32), d):
+        raise AssertionError("fp16 +-1 matmul != Hamming distances at the retrieval shape")
+    fns = {"kernel": lambda: hamming.hamming_matrix_cuda(a, vocab),
+           "kernel+argmin": lambda: torch.argmin(hamming.hamming_matrix_cuda(a, vocab), dim=-1),
+           "library": lib,
+           "library+argmin": lambda: torch.argmax(lib(), dim=-1),
+           "plain": lambda: hamming.hamming_matrix_plain(a, vocab)}
+    t = in_turns(fns)
+    tr_k = traced_ms(fns["kernel"])
+    tr_l = traced_ms(lib)
+    n_pairs = d.numel()
+    # bytes: a and b read once, the (2, 1012, 256) int32 matrix written once;
+    # operations: XOR, popcount and add per word
+    bms, by = bound((a.numel() + vocab.numel() + n_pairs) * 4, n_pairs * 4 * 3)
+    out["retrieval"] = dict(max_abs_err=0, ms=t["kernel"][0], host_us=t["kernel"][1],
+                            argmin_ms=t["kernel+argmin"][0], plain_ms=t["plain"][0],
+                            library_ms=t["library"][0], library_argmin_ms=t["library+argmin"][0],
+                            bound_ms=bms, bound_by=by, traced_ms=tr_k[0], library_traced_ms=tr_l[0])
+    log(f"distance matrix at the retrieval shape {tuple(a.shape)}x{tuple(vocab.shape)}: exact vs "
+        f"plain, argmin identical (56 planted ties resolve to the lower index); device ms per call: "
+        f"kernel {t['kernel'][0]:.5f}, kernel + argmin {t['kernel+argmin'][0]:.5f}, library (fp16 "
+        f"matmul of unpacked +-1 bits, unpacking excluded) {t['library'][0]:.5f}, library + argmax "
+        f"{t['library+argmin'][0]:.5f}, plain {t['plain'][0]:.5f}; host us per call kernel "
+        f"{t['kernel'][1]:.1f}, library {t['library'][1]:.1f}; bound {bms * 1e3:.4f} us ({by}); "
+        f"traced: kernel {traced_text(*tr_k)}, library {traced_text(*tr_l)}")
+    # ---- verification: near matches, ties (repeated corners), masked rows
+    A, B = words((512, 8)), words((500, 8))
+    A[:200] = B[:200] ^ torch.as_tensor(rng.integers(0, 2, (200, 8)), dtype=torch.int32, device=dev)
+    B[400:450] = B[:50]
+    va = torch.arange(512, device=dev) < 470
+    vb = torch.as_tensor(rng.random(500) < 0.95, device=dev)
+    args = (A, B, va, vb, None)
+    n_valid = check_matcher(args, "verification", max_distance=DESC_DIST_LOOP, mutual=True)
+    kw = dict(max_distance=DESC_DIST_LOOP, mutual=True)
+    t = in_turns({"kernel": lambda: hamming.match_descriptors_cuda(*args, **kw),
+                  "unfused": lambda: unfused_match(*args, **kw),
+                  "plain": lambda: hamming.match_descriptors_plain(*args, **kw)})
+    tr_k = traced_ms(lambda: hamming.match_descriptors_cuda(*args, **kw))
+    tr_u = traced_ms(lambda: unfused_match(*args, **kw))
+    bms, by = bound((A.numel() + B.numel()) * 4 + 512 + 500 + 512 * 9, 512 * 500 * 8 * 3)
+    out["verification"] = dict(max_abs_err=0, ms=t["kernel"][0], host_us=t["kernel"][1],
+                               plain_ms=t["plain"][0], unfused_ms=t["unfused"][0], bound_ms=bms,
+                               bound_by=by, traced_ms=tr_k[0], unfused_traced_ms=tr_u[0])
+    log(f"fused matcher at the verification shape (512,8)x(500,8), distance {DESC_DIST_LOOP}, "
+        f"mutual, no gate: bit-exact vs plain ({n_valid} matches, 50 planted ties); device ms per "
+        f"call fused {t['kernel'][0]:.5f}, distance-matrix kernel + match() {t['unfused'][0]:.5f}, "
+        f"plain {t['plain'][0]:.5f}; host us {t['kernel'][1]:.1f}; bound {bms * 1e3:.4f} us ({by}); "
+        f"traced: fused {traced_text(*tr_k)}, unfused {traced_text(*tr_u)}")
+    return out
+
+
+def revisit_exports(cfg, dev, n_traverse: int = 12, revisit_times=(0.0, 0.25, 0.5),
+                    drift_step=(0.03, -0.02, 0.01)):
+    """The JAX loop-closure tests' revisit drive (``tests/test_loopclosure.py``,
+    ``test_loop_closure_reduces_trajectory_error_e2e``) at full width: the
+    config's camera 0 (800x600, radial-tangential), a blob scene rendered on
+    the card along the default trajectory, ``n_traverse`` keyframes 0.25 s
+    apart then revisits of the first ones (offset by a few cm); keypoints
+    detected at the config's 400, each associated with the landmark that
+    projects within 2 px; VIO poses and maps carrying an accumulating
+    translation drift. Returns (camera, exports, true positions)."""
+    from svin_tpu_torch.cameras import project
+    from svin_tpu_torch.kinematics import inverse, transform_point
+    from svin_tpu_torch.ops import detection
+    from svin_tpu_torch.pipeline import SyntheticRenderer
+
+    rig = cfg.build_rig(torch.float64, dev)
+    renderer = SyntheticRenderer(rig, n_points=600, seed=5, spread=6.0, depth_offset=3.0)
+    cam = rig.cameras[0]
+    lms = renderer.points_W
+    times = [0.25 * k for k in range(n_traverse)] + list(revisit_times)
+    drift = np.asarray(drift_step)
+    exports, gt = [], []
+    for k, t in enumerate(times):
+        T = renderer.pose(t)
+        T = type(T)(r=T.r.to(dev), q=T.q.to(dev))
+        if k >= n_traverse:
+            T = type(T)(r=T.r + torch.tensor([0.04, -0.02, 0.01], dtype=T.r.dtype, device=T.r.device),
+                        q=T.q)
+        img = renderer.render(T, 0)
+        kp = detection.detect(img, max_keypoints=cfg.max_keypoints)
+        uv, ok = project(cam, transform_point(inverse(T), lms))
+        d2 = ((kp.uv.double()[:, None, :] - uv[None]) ** 2).sum(-1)
+        d2 = torch.where(ok[None] & kp.valid[:, None], d2, torch.full_like(d2, 1e9))
+        best, j = d2.min(dim=1)
+        sel = (best < 4.0).cpu().numpy()
+        j, kuv, lm = j.cpu().numpy()[sel], kp.uv.cpu().numpy()[sel], lms.cpu().numpy()
+        d_k = k * drift
+        quad = np.bincount((kuv[:, 1] >= cam.height / 2) * 2 + (kuv[:, 0] >= cam.width / 2),
+                           minlength=4)
+        exports.append({
+            "kf_index": k, "timestamp": t + (10.0 if k >= n_traverse else 0.0),
+            "image": img.cpu().numpy(), "T_WC_r": T.r.cpu().numpy() + d_k,
+            "T_WC_q": T.q.cpu().numpy(), "points_W": lm[j] + d_k, "landmark_ids": j,
+            "keypoints_uv": kuv, "quality": np.full(len(j), 0.5), "num_tracked": len(j),
+            "num_new": 0, "quadrant_counts": quad, "response_strengths": np.ones(len(j)),
+        })
+        gt.append(T.r.cpu().numpy())
+    return cam, exports, np.stack(gt)
+
+
+def loop_drive(name, cfg, cam, exports, gt, dev, verbose=True, rmse_factor=0.6, **kw) -> dict:
+    """One LoopCloser over the revisit exports; checks and prints what came
+    out: loops, the optimized path's RMSE against the drifted one (below
+    ``rmse_factor`` x, where it is not None), per keyframe ``add_keyframe``
+    ms and stage times, launches per keyframe."""
+    from svin_tpu_torch.loopclosure import LoopCloser
+
+    closer = LoopCloser(cam, cfg, device=dev, **kw)
+    draws, draw = {}, closer.draw_p3p
+
+    def recorded(cur, old, valid, n):  # kept for a reference run to replay
+        draws[(cur, old)] = hyp = draw(cur, old, valid, n)
+        return hyp
+
+    closer.draw_p3p = recorded
+    Timing.reset()
+    reset_counts()
+    ms, loops = [], []
+    for e in exports:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp = closer.add_keyframe(e)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if lp is not None:
+            loops.append((lp.query_index, lp.match_index, lp.num_inliers))
+    closer.flush()
+    launches = read_counts()
+    n = len(exports)
+    if len(closer.keyframes) != n:
+        raise AssertionError(f"loop drive [{name}]: {len(closer.keyframes)} keyframes of {n}")
+    if not loops or not any(q >= n - 3 for q, _, _ in loops):
+        raise AssertionError(f"loop drive [{name}]: no revisit closed a loop: {loops}")
+    vio = np.stack([e["T_WC_r"] for e in exports])
+    rmse = lambda p: float(np.sqrt(np.mean(np.sum((p - gt) ** 2, axis=1))))  # noqa: E731
+    r_vio, r_opt = rmse(vio), rmse(closer.optimized_path())
+    if not np.isfinite(closer.optimized_path()).all():
+        raise AssertionError(f"loop drive [{name}]: non-finite optimized path")
+    if rmse_factor is not None and not r_opt < rmse_factor * r_vio:
+        raise AssertionError(f"loop drive [{name}]: RMSE {r_opt:.4f} m not below {rmse_factor} x "
+                             f"{r_vio:.4f} m")
+    stages = {}
+    for k in LOOP_STAGES:
+        st = Timing.get(k)
+        if st is not None:
+            v = 1e3 * np.asarray(list(st.window))
+            stages[k] = dict(n=st.count, median=float(np.median(v)), p90=float(np.percentile(v, 90)),
+                             per_kf=float(v.sum()) / n)
+    log(f"loop drive [{name}]: {n} keyframes, loops (query, match, inliers) {loops}; RMSE "
+        f"drifted {r_vio:.4f} m -> optimized {r_opt:.4f} m ({r_opt / r_vio:.3f}x); "
+        f"stats {closer.stats}")
+    if verbose:
+        log(f"  add_keyframe ms per keyframe: median {statistics.median(ms):.2f}, p90 "
+            f"{float(np.percentile(ms, 90)):.2f}, max {max(ms):.2f}; per keyframe "
+            f"{[round(x, 1) for x in ms]}")
+        for k, v in stages.items():
+            log(f"  {k}: {v['n']} calls, median {v['median']:.2f} ms, p90 {v['p90']:.2f} ms, "
+                f"{v['per_kf']:.2f} ms per keyframe")
+        per_kf = {k: round(v / n, 2) for k, v in launches.items()}
+        log(f"  launches {launches}, per keyframe {per_kf}")
+    return dict(loops=loops, launches=launches, ms=ms, stages=stages, rmse=(r_vio, r_opt),
+                path=closer.optimized_path(), closer=closer, draws=draws)
+
+
+def cpu_reference(name, cfg, cam, exports, run) -> None:
+    """The card's closer against a float64 closer on the CPU, fed the
+    descriptors the card computed (the closer's image-free intake) and the
+    card's P3P draws: the same (query, match) loops, and the optimized path
+    within REF_TOL_M of the reference and within a tenth of how far the
+    reference's solve moved the path off the drifted one, so that a solve
+    on the card that does not move the graph fails."""
+    from svin_tpu_torch.loopclosure import LoopCloser
+
+    draws = {k: v.cpu() for k, v in run["draws"].items()}
+
+    def replay(cur, old, valid, n):
+        if (cur, old) not in draws:
+            raise AssertionError(f"CPU reference [{name}]: verifies ({cur}, {old}), the card did not")
+        return draws[(cur, old)]
+
+    ref = LoopCloser(cam, cfg, device="cpu", draw_p3p=replay)
+    t0 = time.perf_counter()
+    loops = []
+    for e, kf in zip(exports, run["closer"].keyframes):
+        free = {k: v for k, v in e.items() if k != "image"}
+        free.update(window_desc=kf.window_desc, extra_desc=kf.extra_desc, extra_uv=kf.extra_uv,
+                    extra_valid=kf.extra_valid)
+        lp = ref.add_keyframe(free)
+        if lp is not None:
+            loops.append((lp.query_index, lp.match_index, lp.num_inliers))
+    ref.flush()
+    want = ref.optimized_path()
+    moved = float(np.abs(want - np.stack([e["T_WC_r"] for e in exports])).max())
+    err = float(np.abs(run["path"] - want).max())
+    log(f"CPU reference [{name}] (float64, the card's descriptors and draws, "
+        f"{time.perf_counter() - t0:.1f} s): loops {loops}; the solve moved the path by up to "
+        f"{moved * 1e3:.3f} mm; the card's optimized path within {err * 1e3:.4f} mm of it")
+    if [lp[:2] for lp in loops] != [lp[:2] for lp in run["loops"]]:
+        raise AssertionError(f"CPU reference [{name}]: loops {loops} != card {run['loops']}")
+    if not err < min(REF_TOL_M, 0.1 * moved):
+        raise AssertionError(f"CPU reference [{name}]: card path {err * 1e3:.4f} mm off, tolerance "
+                             f"{REF_TOL_M * 1e3} mm and a tenth of the {moved * 1e3:.3f} mm moved")
+
+
+def entry_point_phase(dev) -> dict:
+    """``svin_tpu_torch.apps.run_synchronous.main`` on the card at the
+    underwater configuration with a short synthetic sequence and a
+    checkpoint, then a second run resuming it. Every frame gets a result,
+    every output is written and parses, the closer takes in every healthy
+    keyframe and each goes through the distance-matrix kernel."""
+    import contextlib
+    import io
+
+    from svin_tpu_torch import pipeline as tpipe
+    from svin_tpu_torch.apps import run_synchronous
+    from svin_tpu_torch.loopclosure import LoopCloser, check_health
+
+    seen = dict(frames=0, results=0, exports=0, healthy=0, taken=0, bow=[],
+                reasons=collections.Counter(), closer=collections.Counter())
+    run_events0, add0 = tpipe.run_events, LoopCloser.add_keyframe
+
+    def counted_run_events(engine, events):
+        evs = list(events)
+        seen["frames"] += sum(ev.kind == "frame" for ev in evs)
+        res = run_events0(engine, evs)
+        seen["results"] += len(res)
+        return res
+
+    def counted_add(closer, export):
+        seen["exports"] += 1
+        h = check_health(closer.cfg.health, int(export.get("num_tracked", 0)),
+                         np.asarray(export.get("quadrant_counts", np.zeros(4))),
+                         int(export.get("num_new", 0)),
+                         np.asarray(export.get("response_strengths", np.zeros(0))))
+        seen["healthy"] += int(h.healthy or not closer.cfg.health.enable)
+        seen["reasons"][h.reason.split(" ")[0] if h.reason else "healthy"] += 1
+        n0, before = len(closer.keyframes), read_counts()
+        out = add0(closer, export)
+        after = read_counts()
+        seen["closer"].update({k: after[k] - before[k] for k in KERNELS})
+        if len(closer.keyframes) > n0:
+            seen["taken"] += 1
+            seen["bow"].append(after["hamming_matrix"] - before["hamming_matrix"])
+        return out
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["SVIN_SYNTH_DURATION"] = ENTRY_DURATION_S
+        tpipe.run_events, LoopCloser.add_keyframe = counted_run_events, counted_add
+        try:
+            for run, extra in (("first", ["--save-checkpoint", os.path.join(tmp, "s")]),
+                               ("resumed", ["--resume", os.path.join(tmp, "s")])):
+                for k in ("frames", "results", "exports", "healthy", "taken"):
+                    seen[k] = 0
+                seen["bow"], seen["reasons"], seen["closer"] = [], collections.Counter(), \
+                    collections.Counter()
+                d = os.path.join(tmp, run)
+                reset_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()) as buf:
+                    rc = run_synchronous.main([ENGINE_CONFIG, "--synthetic", d] + extra)
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+                summary = [x for x in buf.getvalue().splitlines() if x.startswith("frames:")]
+                files = set(os.listdir(d))
+                missing = {"svin_vio.txt", "svin_loop.txt", "svin_robust.txt", "state.csv",
+                           "landmarks.csv", "global_map.ply", "keyframes.ply", "switch_info.txt",
+                           "loop_stats.json", "top_view.png"} - files
+                if rc != 0 or missing:
+                    raise AssertionError(f"run_synchronous [{run}]: rc {rc}, missing {missing}")
+                traj = np.loadtxt(os.path.join(d, "svin_vio.txt"), ndmin=2)
+                loop_traj = np.loadtxt(os.path.join(d, "svin_loop.txt"), ndmin=2)
+                np.loadtxt(os.path.join(d, "svin_robust.txt"), ndmin=2)
+                state = np.loadtxt(os.path.join(d, "state.csv"), delimiter=",", ndmin=2)
+                stats = json.loads(open(os.path.join(d, "loop_stats.json")).read())
+                for ply in ("global_map.ply", "keyframes.ply"):
+                    if not open(os.path.join(d, ply)).readline().startswith("ply"):
+                        raise AssertionError(f"run_synchronous [{run}]: {ply} is not a PLY file")
+                # the engine's trajectory carries a resumed session's frames too
+                n_vio = seen["frames"] + (out["first"]["frames"] if run == "resumed" else 0)
+                if not (seen["results"] == seen["frames"] == len(state)
+                        and traj.shape == (n_vio, 8)):
+                    raise AssertionError(f"run_synchronous [{run}]: {seen} results / frames, "
+                                         f"state.csv {len(state)}, svin_vio {traj.shape}")
+                if not (seen["taken"] == seen["healthy"] and seen["bow"] == [1] * seen["taken"]
+                        and launches["hamming_matrix"] == seen["taken"]
+                        and all(launches[k] > 0 for k in ON_PATH)):
+                    raise AssertionError(f"run_synchronous [{run}]: closer took {seen['taken']} of "
+                                         f"{seen['healthy']} healthy of {seen['exports']} keyframes "
+                                         f"(health {dict(seen['reasons'])}); distance-matrix "
+                                         f"launches per keyframe {seen['bow']}, total {launches}")
+                n_restored = stats["n_restored"]
+                if run == "resumed" and not (n_restored == out["first"]["n_kf"]
+                                             and loop_traj.shape[0] == n_restored + seen["taken"]):
+                    raise AssertionError(f"run_synchronous [resumed]: restored {n_restored}, "
+                                         f"keyframes {loop_traj.shape[0]}")
+                out[run] = dict(n_kf=stats["n_keyframes"], launches=launches, frames=seen["frames"],
+                                taken=seen["taken"], closer_launches=dict(seen["closer"]))
+                log(f"run_synchronous [{run}] on the card: {summary[0] if summary else ''}; "
+                    f"{seen['results']} results for {seen['frames']} frames in {wall:.1f} s; "
+                    f"{seen['exports']} keyframe exports, {seen['healthy']} healthy "
+                    f"({dict(seen['reasons'])}), all taken by "
+                    f"the closer, each through the distance-matrix kernel once; restored "
+                    f"{n_restored}; {len(files)} outputs parse; loops {stats['n_loops']}; launches "
+                    f"{launches}, of them in the closer's add_keyframe {dict(seen['closer'])}")
+        finally:
+            tpipe.run_events, LoopCloser.add_keyframe = run_events0, add0
+            os.environ.pop("SVIN_SYNTH_DURATION", None)
+    if out["first"]["taken"] + out["resumed"]["taken"] < 1:
+        raise AssertionError("run_synchronous: no healthy keyframe reached the closer in either run")
+    return out
+
+
+def loop_probe(dev) -> None:
+    """Where a verification and a pose-graph solve spend their time: one
+    seed-free P3P RANSAC at the verification shape (512 rows, 200 matches,
+    a third wrong, 100 hypotheses, float32) and one 4-DoF solve at the
+    revisit drive's size (64 node slots, 128 edge slots, 30 GN iterations):
+    host ms per call (synchronized), and device time and operations per call
+    from a profiler trace."""
+    from svin_tpu_torch.frontend.ransac import absolute_pose_ransac_p3p, draw_hypotheses
+    from svin_tpu_torch.loopclosure import posegraph
+
+    rng = np.random.default_rng(12)
+    n, cap = 200, 512
+    Pc = np.concatenate([rng.uniform(-2, 2, (n, 2)), rng.uniform(3, 8, (n, 1))], 1)
+    b = Pc + rng.normal(size=Pc.shape) * 2e-3
+    bad = rng.choice(n, n // 3, replace=False)
+    b[bad] = rng.normal(size=(len(bad), 3)) + np.array([0, 0, 3.0])
+    b /= np.linalg.norm(b, axis=1, keepdims=True)
+    p_W, bear = np.zeros((cap, 3)), np.tile([0.0, 0.0, 1.0], (cap, 1))
+    p_W[:n], bear[:n] = Pc + np.array([0.3, -0.2, 0.1]), b
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    valid = torch.arange(cap, device=dev) < n
+    hyp = draw_hypotheses(valid, 100, 3, torch.Generator(device=dev).manual_seed(1))
+    p_W_d, bear_d = f32(p_W), f32(bear)
+    p3p = lambda: absolute_pose_ransac_p3p(  # noqa: E731
+        hyp, p_W_d, bear_d, valid, focal_px=700.0, threshold_px=20.0, min_inliers=25)
+    r = p3p()
+    if not (bool(r.success) and int(r.num_inliers) >= 120):
+        raise AssertionError(f"P3P probe: {int(r.num_inliers)} inliers")
+    N, E = 64, 128
+    yaw = np.cumsum(rng.normal(size=N) * 0.05)
+    p = np.cumsum(rng.normal(size=(N, 3)) * 0.2, axis=0)
+    i = np.r_[np.arange(N - 1), rng.integers(0, 8, E - N + 1)].astype(np.int32)
+    j = np.r_[np.arange(1, N), rng.integers(N - 8, N, E - N + 1)].astype(np.int32)
+    R = posegraph.ypr_to_matrix_np(yaw[i], 0 * yaw[i], 0 * yaw[i]).transpose(2, 0, 1)
+    t_ij = np.einsum("eba,eb->ea", R, p[j] - p[i])
+    nodes = posegraph.PoseGraphNodes(f32(p + 0.1), f32(yaw), f32(0 * yaw), f32(0 * yaw),
+                                     torch.ones(N, dtype=torch.bool, device=dev))
+    edges = posegraph.PoseGraphEdges(
+        torch.as_tensor(i, device=dev), torch.as_tensor(j, device=dev), f32(t_ij),
+        f32(yaw[j] - yaw[i]), f32(np.ones(E)), torch.as_tensor(np.arange(E) >= N - 1, device=dev),
+        torch.ones(E, dtype=torch.bool, device=dev))
+    pgo = lambda: posegraph.optimize_4dof(nodes, edges, 1, iters=30)  # noqa: E731
+    for name, fn in (("P3P RANSAC (512 rows, 100 hypotheses)", p3p),
+                     ("4-DoF pose graph (64 nodes, 128 edges, 30 GN iterations)", pgo)):
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        tr = traced_ms(fn, n=3)
+        if tr[0] is None:  # the operation count varies between calls: read one trace
+            tr = traced_ms(fn, n=1, tries=1, agree=False)
+        log(f"{name}: host ms per call (synchronized) median {statistics.median(ms):.2f}; device "
+            f"time per call {traced_text(*tr)}")
+
+
+def loop_phase(dev) -> dict:
+    from svin_tpu_torch.loopclosure import loop_closure
+
+    cfg = load_config(ENGINE_CONFIG)
+    t0 = time.perf_counter()
+    cam, exports, gt = revisit_exports(cfg, dev)
+    log(f"loop revisit input: {len(exports)} keyframes of {cam.width}x{cam.height} rendered on "
+        f"the card in {time.perf_counter() - t0:.1f} s, window keypoints associated "
+        f"{[e['num_tracked'] for e in exports]}")
+    old = loop_closure.RECENCY_EXCLUSION
+    loop_closure.RECENCY_EXCLUSION = LOOP_RECENCY
+    log(f"loop closer: RECENCY_EXCLUSION {loop_closure.RECENCY_EXCLUSION} (50 by default), "
+        f"N_EXTRA_CORNERS {loop_closure.N_EXTRA_CORNERS}, WINDOW_CAP {loop_closure.WINDOW_CAP}, "
+        f"2 x 256-word product vocabulary, {cfg.loop_closure.pnp_ransac_iterations} P3P "
+        f"hypotheses, min {cfg.loop_closure.min_correspondences} correspondences, 30 GN "
+        f"iterations (4-DoF); P3P draws from the closer's generator seeded per pair, the same "
+        f"in every run")
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            main_run = loop_drive("kernels, 4-DoF", cfg, cam, exports, gt, dev)
+            plain = loop_drive("plain, 4-DoF", cfg, cam, exports, gt, dev, verbose=False,
+                               matcher=hamming.match_descriptors_plain,
+                               distance=hamming.hamming_matrix_plain)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if plain["loops"] != main_run["loops"]:
+            raise AssertionError(f"loop drive: kernels {main_run['loops']} != plain {plain['loops']}")
+        if any(plain["launches"].values()):
+            raise AssertionError(f"loop drive [plain]: a kernel was launched: {plain['launches']}")
+        if not (main_run["launches"]["hamming_matrix"] == len(exports)
+                and main_run["launches"]["hamming_match"] > 0):
+            raise AssertionError(f"loop drive: distance matrix not once per keyframe or the fused "
+                                 f"matcher not launched: {main_run['launches']}")
+        log(f"loop drive, kernels vs plain: the same loops and inlier counts; optimized paths "
+            f"within {float(np.abs(main_run['path'] - plain['path']).max()) * 1e3:.3f} mm")
+        cfg6 = load_config(ENGINE_CONFIG)
+        cfg6.loop_closure.pgo_mode = "6dof"
+        # the 6-DoF graph whitens a loop residual by 20 before its Huber(0.1)
+        # weight, so a drift of a few decimetres barely moves it (the JAX
+        # package's graph does the same; the CPU parity tests hold the port
+        # to it in 6-DoF): no RMSE bound, the same loops as the 4-DoF run and
+        # the path of a float64 CPU closer on the same descriptors and draws
+        six = loop_drive("kernels, 6-DoF", cfg6, cam, exports, gt, dev, verbose=False,
+                         rmse_factor=None)
+        if six["loops"] != main_run["loops"]:
+            raise AssertionError(f"loop drive 6-DoF: loops {six['loops']} != 4-DoF {main_run['loops']}")
+        cpu_reference("kernels, 6-DoF", cfg6, cam, exports, six)
+        log(f"loop drive 6-DoF: the 4-DoF run's loops; add_keyframe median "
+            f"{statistics.median(six['ms']):.2f} ms, p90 {float(np.percentile(six['ms'], 90)):.2f} "
+            f"ms; pose graph "
+            f"{six['stages'].get('lc.5 pose_graph', {}).get('median', float('nan')):.2f} ms median "
+            f"per solve; launches per keyframe "
+            f"{ {k: round(v / len(exports), 2) for k, v in six['launches'].items()} }")
+    finally:
+        loop_closure.RECENCY_EXCLUSION = old
+    loop_probe(dev)
+    entry = entry_point_phase(dev)
+    # every launch of the phase, and those of the closer alone (the revisit
+    # drives, and add_keyframe within the apps)
+    launches = {k: main_run["launches"][k] + six["launches"][k] + entry["first"]["launches"][k]
+                + entry["resumed"]["launches"][k] for k in KERNELS}
+    closer = {k: main_run["launches"][k] + six["launches"][k]
+              + entry["first"]["closer_launches"].get(k, 0)
+              + entry["resumed"]["closer_launches"].get(k, 0) for k in KERNELS}
+    return launches, closer
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
@@ -1120,22 +1628,32 @@ def main() -> int:
                     log("  ptxas: " + line.strip().removeprefix("ptxas info    : "))
 
     timings = kernel_phase(dev)
+    loop_timings = loop_kernel_phase(dev)
     launches = slice_phase(dev)
     engine_launches, inputs = engine_phase(dev)
     pipelined_launches = pipelined_phase(dev, *inputs)
-    launches = {k: launches[k] + engine_launches[k] + pipelined_launches[k] for k in launches}
-    log(f"launches summed over the backend-step, engine and pipelined paths: {launches}")
+    loop_launches, closer_launches = loop_phase(dev)
+    launches = {k: launches[k] + engine_launches[k] + pipelined_launches[k] + loop_launches[k]
+                for k in launches}
+    log(f"launches summed over the backend-step, engine, pipelined and loop-closure paths: "
+        f"{launches} (loop-closure phase, the apps' engine included: {loop_launches}; the loop "
+        f"closer alone: {closer_launches})")
 
+    ret, ver = loop_timings["retrieval"], loop_timings["verification"]
     record = {"kernels": [
         {"name": "spd_solve_chol", "route": "cuda", "source": "svin_tpu_torch/csrc/spd_solve_chol.cu",
          "replaces": "svin_tpu/ops/solve.py:59", "launches": launches["spd_solve_chol"],
          "shape": f"D={SOLVE_D}", **timings["spd_solve_chol"]},
         {"name": "hamming_match", "route": "cuda", "source": "svin_tpu_torch/csrc/hamming_match.cu",
          "replaces": "svin_tpu/ops/hamming.py:44", "launches": launches["hamming_match"],
-         "shape": f"(2,{K},8)x(512,8), mask (2,{K},512)", **timings["hamming_match"]},
+         "loop_launches": closer_launches["hamming_match"],
+         "shape": f"(2,{K},8)x(512,8), mask (2,{K},512)", **timings["hamming_match"],
+         **{f"verification_{k}": v for k, v in ver.items() if k != "max_abs_err"}},
         {"name": "hamming_matrix", "route": "cuda", "source": "svin_tpu_torch/csrc/hamming.cu",
          "replaces": "svin_tpu/ops/hamming.py:44", "launches": launches["hamming_matrix"],
-         "on_main_path": False, "shape": f"(2,{K},8)x(512,8)", **timings["hamming_matrix"]},
+         "loop_launches": closer_launches["hamming_matrix"],
+         "shape": f"(2,{RETRIEVAL_K},4)x(2,256,4)", **ret,
+         **{f"map_{k}": v for k, v in timings["hamming_matrix"].items() if k != "max_abs_err"}},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

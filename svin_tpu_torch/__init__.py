@@ -6,7 +6,7 @@ in both packages, and so on). State stays NamedTuples
 of tensors with the JAX package's field names and layouts; the math is
 plain functions on tensors with analytic Jacobians (no autograd).
 
-Layer map of the ported slice (the VIO backend's per-frame step):
+Layer map of the port:
 
   kinematics/   quaternion + SE(3) algebra on tensors
   cameras/      pinhole + distortion models, N-camera rig
@@ -18,13 +18,18 @@ Layer map of the ported slice (the VIO backend's per-frame step):
                 Hamming distance matrix and the fused matcher
                 (``ops/hamming.py``), each with its plain PyTorch version
                 beside it
-  pipeline/     the two per-frame device programs (projection-gated map
-                matching; optimize + marginalize + outlier prune) and the
-                ``BackendStep`` module that chains them
+  pipeline/     the engine's device programs, ``BackendStep``,
+                ``VioEngine`` (serial and pipelined), ``AsyncVioEngine``,
+                outputs, checkpoints, dataset sources
+  loopclosure/  BoW retrieval (the distance-matrix kernel assigns words),
+                seed-free P3P verification (the fused matcher), the 4/6-DoF
+                pose graph, ``LoopCloser``
+  apps/         run_synchronous, run_live, train_vocabulary, evaluate,
+                convert_bag
 
 Devices: every public entry reads its device from its input tensors or takes
-an explicit ``device``; ``VioEngine`` runs on ``cuda`` unless the caller
-names another device. A kernel wrapper launches its CUDA kernel for a CUDA
+an explicit ``device``; ``VioEngine``, ``LoopCloser`` and the apps run on
+``cuda`` unless the caller names another device. A kernel wrapper launches its CUDA kernel for a CUDA
 tensor and runs its plain version only for a CPU tensor.
 """
 

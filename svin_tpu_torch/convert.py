@@ -12,8 +12,11 @@ For the engine: ``config_from_numpy`` (a JAX-package ``VioConfig``, whose
 fields are numpy and Python values → the port's), ``renderer_from_scene``
 (a synthetic scene as numpy arrays → the port's renderer) and
 ``engine_from_state`` (an engine's host state as numpy → a port
-``VioEngine``). Callers hand over host values only: extract them with the
-JAX package's own tools first.
+``VioEngine``). For loop closure: ``vocabulary_from_numpy`` and
+``product_vocabulary_from_numpy`` (codebooks as uint32 words, idf weights),
+and ``posegraph_from_numpy`` (the pose-graph tables ``PoseGraphNodes`` /
+``PoseGraphEdges`` / ``PoseGraph6Nodes`` / ``PoseGraph6Edges``). Callers hand over host values only: extract
+them with the JAX package's own tools first.
 """
 from __future__ import annotations
 
@@ -133,6 +136,36 @@ def numpy_tree_as_port(tree):
         a = np.array(tree)
         return a.view(np.int32) if a.dtype == np.uint32 else a
     return tree
+
+
+def posegraph_from_numpy(tree, device=None, dtype=torch.float64):
+    """The JAX package's pose-graph tables (numpy leaves; ``is_loop`` may be
+    None) → the port's, on ``device`` with float leaves in ``dtype``."""
+    from .loopclosure import posegraph
+
+    cls = getattr(posegraph, type(tree).__name__)
+    return cls(**{f: None if getattr(tree, f, None) is None
+                  else array_to_tensor(getattr(tree, f), device, dtype) for f in cls._fields})
+
+
+def vocabulary_from_numpy(vocab, weights=None, device=None):
+    """A flat codebook (V, 8) of uint32 words and optional idf weights (V,)
+    → (int32 words, float32 weights or None) on ``device``."""
+    from .loopclosure.retrieval import as_words
+
+    w = None if weights is None else torch.as_tensor(np.asarray(weights, np.float32), device=device)
+    return as_words(np.asarray(vocab), device), w
+
+
+def product_vocabulary_from_numpy(pv, device=None):
+    """The JAX package's ``ProductVocabulary`` (or any object with
+    ``vocab1``, ``vocab2`` and ``idf`` as numpy values) → the port's."""
+    from .loopclosure.retrieval import ProductVocabulary, as_words
+
+    idf = getattr(pv, "idf", None)
+    return ProductVocabulary(
+        vocab1=as_words(np.asarray(pv.vocab1), device), vocab2=as_words(np.asarray(pv.vocab2), device),
+        idf=None if idf is None else torch.as_tensor(np.asarray(idf, np.float32), device=device))
 
 
 def config_from_numpy(cfg):

@@ -2,6 +2,7 @@ from .hull import keyframe_overlap_ratio
 from .ransac import (
     RansacResult,
     absolute_pose_ransac,
+    absolute_pose_ransac_p3p,
     draw_hypotheses,
     relative_pose_ransac,
     rotation_only_ransac,
@@ -19,6 +20,7 @@ __all__ = [
     "ScaleRefiner",
     "TriangulationResult",
     "absolute_pose_ransac",
+    "absolute_pose_ransac_p3p",
     "draw_hypotheses",
     "keyframe_overlap_ratio",
     "point_from_homogeneous",

@@ -1,5 +1,6 @@
-"""Batched RANSAC: absolute pose (3D-2D), rotation-only and relative pose
-(2D-2D), every hypothesis solved at once along a leading batch dim.
+"""Batched RANSAC: absolute pose (3D-2D, prior-seeded or seed-free P3P),
+rotation-only and relative pose (2D-2D), every hypothesis solved at once
+along a leading batch dim.
 
 Counterpart of the JAX package's ``frontend/ransac.py``: each hypothesis is
 a prior-seeded Gauss-Newton fit on its minimal sample (rotation-only: a
@@ -253,3 +254,149 @@ def relative_pose_ransac(
         T=Transformation(r=torch.where(ok, t_r, t_prior), q=torch.where(ok, q_r, q_prior)),
         inliers=inl, num_inliers=n, success=ok,
     )
+
+
+# ----------------------------------------------------------- closed-form P3P
+def _quartic_roots(A, B, C, D, E, iters: int = 40) -> torch.Tensor:
+    """All four complex roots of A v⁴ + B v³ + C v² + D v + E (coefficients
+    batched (...,)) by Durand–Kerner simultaneous iteration from scaled
+    rotating starts; (..., 4) complex128 for float64 input, else complex64."""
+    cdtype = torch.complex128 if A.dtype == torch.float64 else torch.complex64
+    A_ = torch.where(torch.abs(A) < 1e-12, torch.full_like(A, 1e-12), A)
+    a, b, c, d = ((X / A_).to(cdtype)[..., None] for X in (B, C, D, E))
+
+    def poly(x):
+        return (((x + a) * x + b) * x + c) * x + d
+
+    # Cauchy-style root bound scales the standard rotating starts
+    bound = 1.0 + torch.maximum(torch.maximum(torch.abs(a), torch.abs(b)),
+                                torch.maximum(torch.abs(c), torch.abs(d)))
+    seed = torch.tensor(0.4 + 0.9j, dtype=cdtype, device=A.device)
+    z = bound * seed ** torch.arange(1, 5, device=A.device).to(cdtype)
+    eye = torch.eye(4, dtype=cdtype, device=A.device)
+    tiny = torch.tensor(1e-30, dtype=cdtype, device=A.device)
+    for _ in range(iters):
+        # z_i ← z_i − p(z_i) / ∏_{j≠i} (z_i − z_j)
+        diff = z[..., :, None] - z[..., None, :] + eye  # diagonal → 1
+        denom = diff[..., 0] * diff[..., 1] * diff[..., 2] * diff[..., 3]
+        denom = torch.where(torch.abs(denom) < 1e-30, tiny, denom)
+        z = z - poly(z) / denom
+    return z
+
+
+def _p3p_grunert(f: torch.Tensor, P: torch.Tensor):
+    """Closed-form P3P (Grunert's quartic), batched: unit bearings f
+    (..., 3, 3) and world points P (..., 3, 3) → up to four camera poses
+    T_WC per triple, (r (..., 4, 3), q (..., 4, 4), ok (..., 4))."""
+    dtype = f.dtype
+    a2 = torch.sum((P[..., 1, :] - P[..., 2, :]) ** 2, dim=-1)
+    b2 = torch.sum((P[..., 0, :] - P[..., 2, :]) ** 2, dim=-1)
+    c2 = torch.sum((P[..., 0, :] - P[..., 1, :]) ** 2, dim=-1)
+    ca = torch.sum(f[..., 1, :] * f[..., 2, :], dim=-1)  # cos α (rays 2-3)
+    cb = torch.sum(f[..., 0, :] * f[..., 2, :], dim=-1)  # cos β (rays 1-3)
+    cg = torch.sum(f[..., 0, :] * f[..., 1, :], dim=-1)  # cos γ (rays 1-2)
+    b2s = torch.where(b2 < 1e-12, torch.full_like(b2, 1e-12), b2)
+    m = (a2 - c2) / b2s
+    n = (a2 + c2) / b2s
+    A4 = (m - 1.0) ** 2 - 4.0 * (c2 / b2s) * ca * ca
+    A3 = 4.0 * (m * (1.0 - m) * cb - (1.0 - n) * ca * cg + 2.0 * (c2 / b2s) * ca * ca * cb)
+    A2 = 2.0 * (m * m - 1.0 + 2.0 * m * m * cb * cb + 2.0 * ((b2 - c2) / b2s) * ca * ca
+                - 4.0 * n * ca * cb * cg + 2.0 * ((b2 - a2) / b2s) * cg * cg)
+    A1 = 4.0 * (-m * (1.0 + m) * cb + 2.0 * (a2 / b2s) * cg * cg * cb - (1.0 - n) * ca * cg)
+    A0 = (1.0 + m) ** 2 - 4.0 * (a2 / b2s) * cg * cg
+    roots = _quartic_roots(A4, A3, A2, A1, A0)  # (..., 4)
+    vk = torch.real(roots).to(dtype)
+    real_ok = torch.abs(torch.imag(roots)).to(dtype) < 1e-4 * (1.0 + torch.abs(vk))
+
+    # per root (trailing dim 4): side lengths along the three rays
+    m4, ca4, cb4, cg4, b24 = (x[..., None] for x in (m, ca, cb, cg, b2))
+    denom_u = 2.0 * (cg4 - vk * ca4)
+    denom_u = torch.where(torch.abs(denom_u) < 1e-9, torch.full_like(denom_u, 1e-9), denom_u)
+    u = ((-1.0 + m4) * vk * vk - 2.0 * m4 * cb4 * vk + 1.0 + m4) / denom_u
+    s1sq = b24 / torch.clamp(1.0 + vk * vk - 2.0 * vk * cb4, min=1e-12)
+    s1 = torch.sqrt(torch.clamp(s1sq, min=0.0))
+    s2 = u * s1
+    s3 = vk * s1
+    ok = real_ok & (vk > 0) & (u > 0) & (s1 > 1e-6)
+    fe = f[..., None, :, :]  # (..., 1, 3, 3)
+    X = torch.stack([s1[..., None] * fe[..., 0, :], s2[..., None] * fe[..., 1, :],
+                     s3[..., None] * fe[..., 2, :]], dim=-2)  # (..., 4, 3, 3) camera frame
+    # a root that overflowed gives a non-finite triple, which the JAX
+    # package's SVD carries through to a failed check and the CPU's
+    # torch.linalg.svd refuses: zero it and fail it here instead
+    finite = torch.isfinite(X).flatten(-2).all(dim=-1)  # (..., 4)
+    X = torch.where(finite[..., None, None], X, torch.zeros_like(X))
+    # absolute orientation: P ≈ R X + t
+    Pe = P[..., None, :, :].expand(X.shape)
+    Xm, Pm = X.mean(dim=-2), Pe.mean(dim=-2)
+    q_WC = _kabsch_quat(Pe - Pm[..., None, :], X - Xm[..., None, :],
+                        torch.ones(X.shape[:-1], dtype=dtype, device=f.device))
+    t = Pm - quat.rotate(q_WC, Xm)
+    # self-consistency: the recovered pose must reproduce the triple
+    err = torch.amax(torch.linalg.norm(
+        quat.rotate(q_WC[..., None, :], X) + t[..., None, :] - Pe, dim=-1), dim=-1)
+    scale = torch.sqrt(torch.clamp(a2 + b2 + c2, min=1e-9))[..., None]
+    return t, q_WC, ok & finite & (err < 0.02 * scale)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] for a 0-d index tensor, without a host synchronisation."""
+    return torch.index_select(x, 0, idx.reshape(1))[0]
+
+
+def absolute_pose_ransac_p3p(
+    hyp_idx: torch.Tensor,  # (H, 3) sample indices
+    p_W: torch.Tensor,  # (N,3)
+    bearings: torch.Tensor,  # (N,3) unit, camera frame
+    valid: torch.Tensor,  # (N,)
+    focal_px,
+    threshold_px=3.0,
+    min_inliers: int = 10,
+    refine_iters: int = 7,
+) -> RansacResult:
+    """Seed-free absolute-pose RANSAC: closed-form P3P hypotheses (up to four
+    poses per sampled triple, all scored as one (H, 4, N) residual), the
+    best refined by GN on its inliers (kept only if it loses no inliers),
+    then a second GN refit on the support within a quarter of the threshold
+    (floored at 3 px), kept when it holds a majority and loses no inliers.
+    No initial pose enters: loop-closure verification must work under any
+    drift."""
+    dtype = p_W.dtype
+    thr = threshold_px / focal_px
+    ok_sample = valid[hyp_idx].all(dim=-1)  # (H,)
+    r4, q4, ok4 = _p3p_grunert(bearings[hyp_idx], p_W[hyp_idx])  # (H,4,3) (H,4,4) (H,4)
+    err4 = torch.linalg.norm(_bearing_residual(Transformation(r=r4, q=q4), p_W, bearings), dim=-1)
+    inl4 = valid & (err4 < thr) & ok4[..., None] & ok_sample[:, None, None]  # (H,4,N)
+    n4 = inl4.sum(dim=-1)
+    b4 = torch.argmax(n4, dim=-1)  # first of equal counts, as jnp.argmax
+    rs = torch.gather(r4, 1, b4[:, None, None].expand(-1, 1, 3))[:, 0]
+    qs = torch.gather(q4, 1, b4[:, None, None].expand(-1, 1, 4))[:, 0]
+    inls = torch.gather(inl4, 1, b4[:, None, None].expand(-1, 1, inl4.shape[-1]))[:, 0]
+    counts = torch.gather(n4, 1, b4[:, None])[:, 0]
+    best = torch.argmax(counts)
+    T_best = Transformation(r=_take(rs, best), q=_take(qs, best))
+    inl_b, n_b = _take(inls, best), _take(counts, best)
+    # GN refinement on the best model's inliers (seeded by P3P itself)
+    T_ref = _gn_pose_fit(T_best, p_W, bearings, inl_b.to(dtype), iters=refine_iters)
+    err = torch.linalg.norm(_bearing_residual(T_ref, p_W, bearings), dim=-1)
+    inl = valid & (err < thr)
+    n = inl.sum()
+    better = n >= n_b  # fall back to the unrefined best if refinement lost inliers
+    T_out = Transformation(r=torch.where(better, T_ref.r, T_best.r),
+                           q=torch.where(better, T_ref.q, T_best.q))
+    inl = torch.where(better, inl, inl_b)
+    n = torch.where(better, n, n_b)
+    # second, tightened refit (the residuals of the first refit select it)
+    thr2 = max(thr * 0.25, 3.0 / focal_px)
+    inl_t = inl & (err < thr2)
+    n_t = inl_t.sum()
+    T_tight = _gn_pose_fit(T_out, p_W, bearings, inl_t.to(dtype), iters=refine_iters)
+    err_t = torch.linalg.norm(_bearing_residual(T_tight, p_W, bearings), dim=-1)
+    inl_chk = valid & (err_t < thr)
+    n_chk = inl_chk.sum()
+    use_tight = (n_t >= torch.clamp(n // 2, min=6)) & (n_chk >= n)
+    T_out = Transformation(r=torch.where(use_tight, T_tight.r, T_out.r),
+                           q=torch.where(use_tight, T_tight.q, T_out.q))
+    inl = torch.where(use_tight, inl_chk, inl)
+    n = torch.where(use_tight, n_chk, n)
+    return RansacResult(T=T_out, inliers=inl, num_inliers=n, success=n >= min_inliers)

@@ -17,7 +17,16 @@ holds:
   ``imu_acc``: the IMU buffer; ``trajectory``: rows (t, r, q).
 
 Per-frame keypoint records are not kept (tracking re-warms in one frame).
-The loop-closer half waits for the port of ``loopclosure/``.
+
+The loop closer's file (``save_loop_closer`` / ``load_loop_closer``), in
+the same package-neutral format: ``nodes__{i}`` / ``edges__{i}`` (the
+pose-graph tables' fields in order), the database rows (``db_word_ids`` /
+``db_word_w`` and the codebooks for the product database, ``db_vectors`` /
+``db_vocab`` for the flat one), ``meta`` (counters, drift, sequence state),
+the drift and base-frame arrays, the full SE(3) edge relatives, and per
+keyframe its pose, timestamp, sequence and loop-closure features (descriptor
+words as uint32), so a resumed session verifies loops against the restored
+keyframes. The inverted file is rebuilt on load.
 """
 from __future__ import annotations
 
@@ -51,7 +60,11 @@ FACTORS_LEAVES = (
        "marg.lin_ext_q", "marg.valid",
        "lm_prior.mean", "lm_prior.sqrt_info", "lm_prior.valid")
 )
-_LEAVES = {"window": WINDOW_LEAVES, "factors": FACTORS_LEAVES}
+# the pose-graph tables (NamedTuples: tree_flatten order is field order)
+NODES_LEAVES = ("p", "yaw", "pitch", "roll", "valid")
+EDGES_LEAVES = ("i", "j", "t_ij", "yaw_ij", "weight", "is_loop", "valid")
+_LEAVES = {"window": WINDOW_LEAVES, "factors": FACTORS_LEAVES, "nodes": NODES_LEAVES,
+           "edges": EDGES_LEAVES}
 _META = ("n_states", "frame_count", "kf_count", "next_state_id", "next_lm_id", "last_kf_slot",
          "first_depth")
 
@@ -135,3 +148,161 @@ def load_engine(engine: VioEngine, path: str) -> VioEngine:
     engine.frames = {}
     engine._pending = None
     return engine
+
+
+def _table(template, prefix: str, data):
+    """A pose-graph table from ``data`` at the file's capacity, float leaves
+    in the template's dtype."""
+    leaves = []
+    for i, name in enumerate(_LEAVES[prefix]):
+        a = np.array(data[f"{prefix}__{i}"])
+        old = getattr(template, name)
+        leaves.append(a.astype(old.dtype) if old.dtype.kind == "f" else a)
+    return type(template)(*leaves)
+
+
+def _pad_stack(arrs, dtype):
+    arrs = [np.asarray(a) for a in arrs]
+    m = max((a.shape[0] for a in arrs), default=0)
+    out = np.zeros((len(arrs), m) + arrs[0].shape[1:], dtype)
+    cnt = np.zeros(len(arrs), np.int32)
+    for i, a in enumerate(arrs):
+        out[i, : a.shape[0]] = a
+        cnt[i] = a.shape[0]
+    return out, cnt
+
+
+def save_loop_closer(closer, path: str) -> None:
+    """Write the loop closer's pose graph, database and keyframe features to
+    ``path`` (``.npz``)."""
+    from ..loopclosure.retrieval import uint32_words
+
+    out: dict = {}
+    _flatten(closer.nodes, "nodes", out)
+    _flatten(closer.edges, "edges", out)
+    db = closer.db
+    if hasattr(db, "word_ids"):  # the product database
+        out["db_word_ids"] = np.asarray(db.word_ids[: db.count])
+        out["db_word_w"] = np.asarray(db.word_w[: db.count])
+        out["db_vocab1"] = uint32_words(db.pv.vocab1)
+        out["db_vocab2"] = uint32_words(db.pv.vocab2)
+    else:
+        out["db_vectors"] = np.asarray(db.vectors[: db.count])
+        out["db_vocab"] = uint32_words(db.vocab)
+    meta = {
+        "n_edges": closer.n_edges,
+        "earliest_loop_index": closer.earliest_loop_index,
+        "yaw_drift": closer.yaw_drift,
+        "n_keyframes": len(closer.keyframes),
+        "sequence_cnt": closer.sequence_cnt,
+        "seq_aligned": {str(k): bool(v) for k, v in closer._seq_aligned.items()},
+        "kf_by_export": {str(k): int(v) for k, v in closer._kf_by_export.items()},
+    }
+    out["meta"] = np.asarray(json.dumps(meta))
+    out["t_drift"] = closer.t_drift
+    out["R_drift"] = closer.R_drift
+    out["w_svin_R"] = closer._w_svin_R
+    out["w_svin_t"] = closer._w_svin_t
+    if closer.keyframes:
+        out["kf_seq"] = np.asarray([k.sequence for k in closer.keyframes], np.int32)
+    if closer._edges_full:
+        out["edges_full_t"] = np.stack([t for t, _ in closer._edges_full])
+        out["edges_full_q"] = np.stack([q for _, q in closer._edges_full])
+    if closer.keyframes:
+        kfs = closer.keyframes
+        out["kf_t"] = np.asarray([k.timestamp for k in kfs])
+        out["kf_r"] = np.stack([np.asarray(k.T_WC_vio.r) for k in kfs])
+        out["kf_q"] = np.stack([np.asarray(k.T_WC_vio.q) for k in kfs])
+        out["kf_wdesc"], out["kf_wdesc_n"] = _pad_stack(
+            [uint32_words(k.window_desc) for k in kfs], np.uint32)
+        out["kf_wvalid"], _ = _pad_stack([np.asarray(k.window_valid, bool) for k in kfs], bool)
+        out["kf_edesc"], out["kf_edesc_n"] = _pad_stack(
+            [uint32_words(k.extra_desc) for k in kfs], np.uint32)
+        out["kf_euv"], _ = _pad_stack([np.asarray(k.extra_uv, np.float32) for k in kfs], np.float32)
+        out["kf_evalid"], _ = _pad_stack([np.asarray(k.extra_valid, bool) for k in kfs], bool)
+        out["kf_pts"], out["kf_pts_n"] = _pad_stack(
+            [np.asarray(k.points_W, np.float64) for k in kfs], np.float64)
+        out["kf_puv"], _ = _pad_stack([np.asarray(k.point_uv, np.float64) for k in kfs], np.float64)
+    np.savez_compressed(path, **out)
+
+
+def load_loop_closer(closer, path: str):
+    """Restore a loop closer written by ``save_loop_closer`` (either
+    package's) into a freshly constructed one: pose graph (capacity from the
+    file), database rows with the inverted file rebuilt, drift and sequence
+    state, and every keyframe's loop-closure features."""
+    from ..kinematics import Transformation
+    from ..loopclosure.loop_closure import LoopKeyframe
+
+    data = np.load(path, allow_pickle=False)
+    closer.nodes = _table(closer.nodes, "nodes", data)
+    closer.edges = _table(closer.edges, "edges", data)
+    # capacity follows the restored arrays (a later growth doubles from them)
+    closer.capacity = int(closer.nodes.p.shape[0])
+    meta = json.loads(str(data["meta"]))
+    closer.n_edges = meta["n_edges"]
+    closer.earliest_loop_index = meta["earliest_loop_index"]
+    closer.yaw_drift = meta["yaw_drift"]
+    closer.t_drift = np.asarray(data["t_drift"])
+    if "R_drift" in data:
+        closer.R_drift = np.asarray(data["R_drift"])
+    if "w_svin_R" in data:
+        closer._w_svin_R = np.asarray(data["w_svin_R"])
+        closer._w_svin_t = np.asarray(data["w_svin_t"])
+    closer.sequence_cnt = int(meta.get("sequence_cnt", 0))
+    closer._seq_aligned = {int(k): bool(v) for k, v in meta.get("seq_aligned", {"0": True}).items()}
+    closer._kf_by_export = {int(k): int(v) for k, v in meta.get("kf_by_export", {}).items()}
+    if "edges_full_t" in data:
+        closer._edges_full = [(np.asarray(t), np.asarray(q))
+                              for t, q in zip(data["edges_full_t"], data["edges_full_q"])]
+    db = closer.db
+    if "db_word_ids" in data:  # the product database
+        n = int(data["db_word_ids"].shape[0])
+        while db.capacity < n:
+            db.word_ids = np.concatenate([db.word_ids, np.zeros_like(db.word_ids)])
+            db.word_w = np.concatenate([db.word_w, np.zeros_like(db.word_w)])
+            db.capacity *= 2
+        db.word_ids[:n] = data["db_word_ids"]
+        db.word_w[:n] = data["db_word_w"]
+        db.count = n
+        # the device mirror is rebuilt on the next device query
+        db._dev_ids = None
+        db._dev_w = None
+        db._dev_count = 0
+        db.rebuild_index()
+    else:
+        n = int(data["db_vectors"].shape[0])
+        while db.capacity < n:
+            db.vectors = np.concatenate([db.vectors, np.zeros_like(db.vectors)])
+            db.capacity *= 2
+        db.vectors[:n] = data["db_vectors"]
+        db.count = n
+    closer.keyframes = []
+    if "kf_t" in data:
+        empty_desc = np.zeros((0, 8), np.int32)
+        empty_valid = np.zeros(0, bool)
+        has_feat = "kf_wdesc" in data
+        for k in range(meta["n_keyframes"]):
+            if has_feat:
+                ne = int(data["kf_edesc_n"][k])
+                npts = int(data["kf_pts_n"][k])
+                wdesc = np.array(data["kf_wdesc"][k]).view(np.int32)
+                wvalid = np.array(data["kf_wvalid"][k])
+                edesc = np.array(data["kf_edesc"][k][:ne]).view(np.int32)
+                euv = np.array(data["kf_euv"][k][:ne])
+                evalid = np.array(data["kf_evalid"][k][:ne])
+                pts = np.array(data["kf_pts"][k][:npts])
+                puv = np.array(data["kf_puv"][k][:npts])
+            else:  # a checkpoint without features
+                wdesc, wvalid = empty_desc, empty_valid
+                edesc, evalid = empty_desc, empty_valid
+                euv = np.zeros((0, 2), np.float32)
+                pts, puv = np.zeros((0, 3)), np.zeros((0, 2))
+            closer.keyframes.append(LoopKeyframe(
+                index=k, timestamp=float(data["kf_t"][k]),
+                T_WC_vio=Transformation(r=np.asarray(data["kf_r"][k]), q=np.asarray(data["kf_q"][k])),
+                points_W=pts, point_uv=puv, window_desc=wdesc, window_valid=wvalid,
+                extra_uv=euv, extra_desc=edesc, extra_valid=evalid,
+                sequence=int(data["kf_seq"][k]) if "kf_seq" in data else 0,
+            ))
+    return closer

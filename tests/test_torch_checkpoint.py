@@ -12,6 +12,13 @@ The file's leaf numbering is held to ``jax.tree_util.tree_flatten``'s. A
 file the port writes loads in the JAX package's ``load_engine`` with equal
 arrays. The outputs writers give the JAX ones' CSV text, log text and
 rendered arrays on the same inputs.
+
+Loop-closer checkpoints: a JAX ``LoopCloser`` takes the traverse of the
+rendered revisit (``torch_parity.revisit_exports``, 8 keyframes) and saves;
+the JAX closer reloaded and the port's (loading the same file) take the 3
+revisits: the same loops and inlier counts, the optimized path within 1e-6
+m, the rebuilt inverted file equal. A file the port writes loads in the JAX
+package's ``load_loop_closer`` with equal arrays.
 """
 import json
 
@@ -32,6 +39,9 @@ from svin_tpu_torch.pipeline import outputs as tout
 from svin_tpu_torch.pipeline import run_events
 from svin_tpu_torch.pipeline.vio import FrameResult
 from svin_tpu_torch.kinematics import Transformation
+import svin_tpu.loopclosure.loop_closure as jlc
+from test_torch_loopclosure import jax_cfg, port_closer, recency
+from torch_parity import revisit_exports
 from test_torch_engine import HANDOVER_FRAME, T_SSO, _check_frames, _jax_config, port_engine
 from vio_fixtures import small_rig
 
@@ -227,3 +237,64 @@ def test_debug_output_dirs_give_the_jax_files(tmp_path):
         b = cv2.imread(str(tmp_path / "j" / f), cv2.IMREAD_UNCHANGED)
         assert a is not None and np.array_equal(a, b), f
     assert cv2.imread(str(tmp_path / "t" / "pnp_verified/kf6.png")).shape[0] == 90
+
+
+# ------------------------------------------------------ loop-closer files
+@pytest.fixture(scope="module")
+def loop_run(tmp_path_factory):
+    cam, exports, _ = revisit_exports()
+    path = str(tmp_path_factory.mktemp("loop") / "jax.loop.npz")
+    with recency(5):
+        jc = jlc.LoopCloser(cam, jax_cfg())
+        for e in exports[:8]:
+            jc.add_keyframe(e)
+        jckpt.save_loop_closer(jc, path)
+        again = jckpt.load_loop_closer(jlc.LoopCloser(cam, jax_cfg()), path)
+        loops = [again.add_keyframe(e) for e in exports[8:]]
+    return dict(cam=cam, exports=exports, path=path, jc=again, loops=loops)
+
+
+def _loops(ls):
+    return [(lp.query_index, lp.match_index, lp.num_inliers) for lp in ls if lp is not None]
+
+
+def test_jax_loop_checkpoint_continues_in_the_port(loop_run):
+    with recency(5):
+        tc = tckpt.load_loop_closer(port_closer(jax_cfg()), loop_run["path"])
+        assert len(tc.keyframes) == 8 and tc.db.count == 8
+        loops = [tc.add_keyframe(e) for e in loop_run["exports"][8:]]
+    jc = loop_run["jc"]
+    assert _loops(loops) == _loops(loop_run["loops"]) and len(_loops(loops)) >= 2
+    assert tc.stats == jc.stats
+    np.testing.assert_allclose(tc.optimized_path(), jc.optimized_path(), rtol=0, atol=1e-6)
+    assert tc.db._inv.keys() == jc.db._inv.keys()
+    for w, (ii, ww) in jc.db._inv.items():
+        assert tc.db._inv[w][0] == ii and np.allclose(tc.db._inv[w][1], ww, rtol=0, atol=0)
+
+
+def test_port_loop_checkpoint_loads_in_the_jax_package(loop_run, tmp_path):
+    with recency(5):
+        tc = tckpt.load_loop_closer(port_closer(jax_cfg()), loop_run["path"])
+        for e in loop_run["exports"][8:]:
+            tc.add_keyframe(e)
+    path = str(tmp_path / "port.loop.npz")
+    tckpt.save_loop_closer(tc, path)
+    jc = jckpt.load_loop_closer(jlc.LoopCloser(loop_run["cam"], jax_cfg()), path)
+    for a, b in zip(jc.nodes + jc.edges, tc.nodes + tc.edges):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    assert (jc.n_edges, jc.earliest_loop_index, jc.sequence_cnt, jc._kf_by_export) == (
+        tc.n_edges, tc.earliest_loop_index, tc.sequence_cnt, tc._kf_by_export)
+    np.testing.assert_array_equal(jc.t_drift, tc.t_drift)
+    np.testing.assert_array_equal(jc.db.word_ids[: jc.db.count], tc.db.word_ids[: tc.db.count])
+    assert len(jc.keyframes) == len(tc.keyframes) == 11
+    for a, b in zip(jc.keyframes, tc.keyframes):
+        np.testing.assert_array_equal(np.asarray(a.window_desc), b.window_desc.view(np.uint32))
+        np.testing.assert_array_equal(np.asarray(a.extra_desc), b.extra_desc.view(np.uint32))
+        np.testing.assert_array_equal(a.points_W, b.points_W)
+    for (t1, q1), (t2, q2) in zip(jc._edges_full, tc._edges_full):
+        np.testing.assert_array_equal(t1, t2)
+        np.testing.assert_array_equal(q1, q2)
+    # and back into the port: the same tables and features
+    back = tckpt.load_loop_closer(port_closer(jax_cfg()), path)
+    for a, b in zip(back.nodes + back.edges, tc.nodes + tc.edges):
+        np.testing.assert_array_equal(a, b)

@@ -17,7 +17,12 @@ identical matches (the matcher is exact), cost within 1% and positions
 within 1 mm (the two solvers round differently and the LM loop carries that
 forward). The
 engine's serial path at the CPU tests' size: the CPU tests' tracking and
-5 cm ATE bounds, with the kernels and with the plain versions.
+5 cm ATE bounds, with the kernels and with the plain versions. The loop
+closer's shapes: the distance matrix at the word assignment (2, 1012, 4) x
+(2, 256, 4) with a per-batch b and the fused matcher at verification
+(512, 8) x (500, 8), both bit for bit with planted ties; the dense
+pose-graph solve (4-DoF and 6-DoF) makes no host synchronisation and lands
+within 1 mm of the float64 CPU solve.
 """
 import numpy as np
 import pytest
@@ -225,3 +230,98 @@ def test_engine_runs_on_the_card_with_kernels_and_plain(dev):
                                         matcher=tham.match_descriptors_plain)
     assert ate_plain < 0.05, ate_plain
     assert (tsolve.spd_solve_chol.launches, tham.match_descriptors_cuda.launches) == (n_solve, n_match)
+
+
+def test_hamming_kernel_at_the_retrieval_shape(dev):
+    """The product vocabulary's word assignment: both 128-bit halves of a
+    keyframe's 1012 descriptors (512 window + 500 fresh corners) against
+    their own 256-word codebooks, one launch with a batch of two and a
+    per-batch b; rows of b repeated so that argmin meets ties."""
+    from svin_tpu_torch.loopclosure import retrieval
+
+    rng = np.random.default_rng(7)
+    desc = _desc(rng, (1012, 8)).to(dev)
+    vocab = _desc(rng, (2, 256, 4)).to(dev)
+    vocab[:, 200:] = vocab[:, 100:156]  # planted ties: equal codewords
+    desc[:56] = torch.cat([vocab[0, 100:156], vocab[1, 100:156]], dim=1)  # exact hits on them
+    a = torch.stack([desc[:, :4], desc[:, 4:]])
+    n0 = tham.hamming_matrix_cuda.launches
+    got = tham.hamming_matrix(a, vocab)
+    torch.cuda.synchronize()
+    assert tham.hamming_matrix_cuda.launches == n0 + 1
+    want = tham.hamming_matrix_plain(a, vocab)
+    assert torch.equal(got, want)
+    w = torch.argmin(got, dim=-1)
+    assert torch.equal(w, torch.argmin(want, dim=-1)) and bool((w[:, :56] < 200).all())
+    words = retrieval.product_words(desc, vocab[0], vocab[1])
+    assert torch.equal(words.cpu(), retrieval.product_words(desc.cpu(), vocab[0].cpu(),
+                                                            vocab[1].cpu()))
+
+
+def test_fused_matcher_at_the_verification_shape(dev):
+    """Loop verification: the current keyframe's 512 window descriptors
+    against the candidate's 500 corners, valid masks, no gate, distance 80,
+    mutual; planted ties (repeated corners)."""
+    rng = np.random.default_rng(8)
+    a, b = _desc(rng, (512, 8)), _desc(rng, (500, 8))
+    a[:200] = b[:200] ^ torch.as_tensor(rng.integers(0, 2, (200, 8)), dtype=torch.int32)  # near
+    b[400:450] = b[:50]  # ties
+    va = torch.as_tensor(np.arange(512) < 470)
+    vb = torch.as_tensor(rng.random(500) < 0.95)
+    args = tuple(x.to(dev) for x in (a, b, va, vb))
+    n0 = tham.match_descriptors_cuda.launches
+    got = tham.match_descriptors(*args, max_distance=80, mutual=True)
+    torch.cuda.synchronize()
+    assert tham.match_descriptors_cuda.launches == n0 + 1
+    want = tham.match_descriptors_plain(*args, max_distance=80, mutual=True)
+    assert int(want.valid.sum()) >= 100
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", ["4dof", "6dof"])
+def test_pose_graph_solve_never_waits_on_the_host(dev, mode):
+    """The loop closer's dense pose-graph GN runs on the card without a host
+    synchronisation (float32, the closer's precision there) and agrees with
+    the same solve in float64 on the CPU."""
+    from svin_tpu_torch.kinematics import quaternion as tquat
+    from svin_tpu_torch.loopclosure import posegraph as tpg
+
+    rng = np.random.default_rng(9)
+    N, E = 64, 160
+    p = np.cumsum(rng.normal(size=(N, 3)) * 0.3, axis=0)
+    yaw = np.cumsum(rng.normal(size=N) * 0.1)
+    i = np.r_[np.arange(N - 1), rng.integers(0, N // 2, E - N + 1)].astype(np.int32)
+    j = np.r_[np.arange(1, N), rng.integers(N // 2, N, E - N + 1)].astype(np.int32)
+    R = tpg.ypr_to_matrix_np(yaw[i], 0 * yaw[i], 0 * yaw[i]).transpose(2, 0, 1)
+    t_ij = np.einsum("eba,eb->ea", R, p[j] - p[i]) + rng.normal(size=(E, 3)) * 0.05
+    yaw_ij = yaw[j] - yaw[i] + rng.normal(size=E) * 0.01
+    is_loop = np.arange(E) >= N - 1
+    if mode == "4dof":
+        nodes = tpg.PoseGraphNodes(p=p + rng.normal(size=p.shape) * 0.2, yaw=yaw, pitch=0 * yaw,
+                                   roll=0 * yaw, valid=np.ones(N, bool))
+        edges = tpg.PoseGraphEdges(i=i, j=j, t_ij=t_ij, yaw_ij=yaw_ij, weight=np.ones(E),
+                                   is_loop=is_loop, valid=np.ones(E, bool))
+        solve, iters = tpg.optimize_4dof, 30
+    else:
+        q = tquat.from_rotation_matrix(tpg.ypr_to_matrix(torch.as_tensor(yaw), 0.0, 0.0)).numpy()
+        q_ij = tquat.from_rotation_matrix(tpg.ypr_to_matrix(torch.as_tensor(yaw_ij), 0.0, 0.0)).numpy()
+        nodes = tpg.PoseGraph6Nodes(r=p + rng.normal(size=p.shape) * 0.2, q=q, valid=np.ones(N, bool))
+        W = np.tile(np.diag([20.0, 20, 20, 100, 100, 57.3]), (E, 1, 1))
+        edges = tpg.PoseGraph6Edges(i=i, j=j, t_ij=t_ij, q_ij=q_ij, sqrt_info=W,
+                                    valid=np.ones(E, bool), is_loop=is_loop)
+        solve, iters = tpg.optimize_6dof, 10
+    on = lambda t, d, dt: type(t)(*(None if x is None else torch.as_tensor(  # noqa: E731
+        x, device=d, dtype=dt if np.asarray(x).dtype.kind == "f" else None) for x in t))
+    ref = solve(on(nodes, "cpu", torch.float64), on(edges, "cpu", torch.float64), 1, iters=iters)
+    nd, ed = on(nodes, dev, torch.float32), on(edges, dev, torch.float32)
+    solve(nd, ed, 1, iters=2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = solve(nd, ed, 1, iters=iters)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = (out.p if mode == "4dof" else out.r).cpu().double()
+    want = ref.p if mode == "4dof" else ref.r
+    assert float((got - want).abs().max()) < 1e-3

@@ -194,3 +194,58 @@ def port_rig() -> NCameraSystem:
     rig.add_camera(from_rq([0.0, 0.0, 0.0], [0, 0, 0, 1]), cam)
     rig.add_camera(from_rq([0.2, 0.0, 0.0], [0, 0, 0, 1]), cam)
     return rig
+
+
+def revisit_exports(drift_step=(0.03, -0.02, 0.01), n_traverse=8, revisits=(0.0, 0.25, 0.5)):
+    """The JAX loop-closure tests' rendered revisit (``test_loopclosure.py``,
+    ``test_loop_closure_reduces_trajectory_error_e2e``) as keyframe exports:
+    one 200x150 camera, a traverse of ``n_traverse`` keyframes 0.25 s apart
+    and revisits of the first ones (offset by a few cm), VIO poses and
+    landmark maps carrying an accumulating translation drift. Returns
+    (camera (JAX), exports, true positions)."""
+    from svin_tpu import sim as jsim
+    from svin_tpu.cameras import project
+    from svin_tpu.kinematics import Transformation as JT
+    from svin_tpu.kinematics import inverse, transform_point
+    from test_loopclosure import _describe_frame, _render_setup
+
+    cam, _, renderer = _render_setup()
+    times = [0.25 * k for k in range(n_traverse)] + list(revisits)
+    lms = np.asarray(renderer.points_W, float)
+    drift_step = np.asarray(drift_step)
+    exports, gt = [], []
+    for k, t in enumerate(times):
+        T_gt = jsim.pose(renderer.traj, jnp.float64(t))
+        if k >= n_traverse:
+            T_gt = JT(r=T_gt.r + jnp.array([0.04, -0.02, 0.01]), q=T_gt.q)
+        d_k = k * drift_step
+        img = np.asarray(renderer._render_jit(T_gt, 0))
+        kp, _ = _describe_frame(jnp.asarray(img))
+        uv, ok = project(cam, transform_point(inverse(T_gt), jnp.asarray(lms)))
+        okn, uvn, kuv = np.asarray(ok), np.asarray(uv), np.asarray(kp.uv)
+        ids, pts3, uv2 = [], [], []
+        for q in np.nonzero(np.asarray(kp.valid))[0]:
+            d2 = np.sum((uvn - kuv[q]) ** 2, axis=1)
+            d2[~okn] = 1e9
+            j = int(np.argmin(d2))
+            if d2[j] < 4.0:
+                ids.append(j)
+                pts3.append(lms[j] + d_k)  # the VIO's drifted map
+                uv2.append(kuv[q])
+        exports.append({
+            "kf_index": k, "timestamp": t + (10.0 if k >= n_traverse else 0.0), "image": img,
+            "T_WC_r": np.asarray(T_gt.r) + d_k, "T_WC_q": np.asarray(T_gt.q),
+            "points_W": np.stack(pts3), "landmark_ids": np.asarray(ids),
+            "keypoints_uv": np.stack(uv2), "quality": np.full(len(ids), 0.5),
+            "num_tracked": len(ids), "quadrant_counts": np.array([5, 5, 5, 5]),
+            "response_strengths": np.ones(len(ids)),
+        })
+        gt.append(np.asarray(T_gt.r))
+    return cam, exports, np.stack(gt)
+
+
+def jax_p3p_draws(cur_index, old_index, valid, num_hypotheses):
+    """The JAX loop closer's P3P draws (key ``PRNGKey(cur * 7919 + old)``),
+    in the port closer's ``draw_p3p`` form."""
+    key = jax.random.PRNGKey(cur_index * 7919 + old_index)
+    return jax_draws(key, valid.cpu().numpy(), num_hypotheses, 3).to(valid.device)
