@@ -29,7 +29,12 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
      systems at D = 7, 120, 132 with relative residual ≤ 1e-4 and relative
      distance to the plain (Cholesky) solution ≤ 1e-3, and a batch of four
      at D = 120 with one non-SPD system that must come out all NaN; timed
-     at D = 120 and 132 beside ``cholesky_ex`` + ``cholesky_solve``.
+     at D = 120 and 132 beside ``cholesky_ex`` + ``cholesky_solve``. Past
+     one block's shared memory, ``solve_spd`` at D = 330, 384, 512, 768,
+     1024 through the cluster kernel (the same tolerances, the route's
+     count), a batch of three at D = 384 with one non-SPD system, float64
+     and D = 1100 through the library route (float64 equal to the plain
+     solve); the cluster kernel timed at each D beside the library.
    - The fused matcher bit for bit equal to the plain matcher
      (``match_descriptors_plain``) on planted cases (row and column ties,
      fully masked rows and columns, invalid keypoints and landmarks) and at
@@ -68,9 +73,10 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
    exactly; the plain run must make the same decisions (keyframes, tracked
    keypoints) on at least SHARED_MIN_FRAMES leading frames, with positions
    within POS_TOL_MM of the kernel run's there (where the runs part is
-   printed). Then at the config's budget, four runs in turns: plain
-   versions, kernels (the main path: launch counts from 0 just before,
-   read just after), kernels, plain versions. Checks, on every run: a
+   printed). Then at the config's budget: plain versions, then kernels (the
+   main path: launch counts from 0 just before, read just after; the
+   pipelined phase compares the serial engine's speed in turns). Checks,
+   on every run: a
    result for every frame, median tracked keypoints >= 20, the window
    filled and marginalized, a keyframe export with the ABI keys, finite
    landmark covariances, B1 and the fused matcher launched and the
@@ -80,7 +86,13 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
    tools/engine_ate_reference.py): 1.5 x for the fixed-count runs, 2 x
    for the budget runs, whose iterations follow the wall clock. Prints per-frame ``add_frame`` median
    and p90 (host clock after a synchronize), the stage timers' medians,
-   and launches per frame.
+   and launches per frame. Then a window of S = 22 states (19 keyframes +
+   3 IMU frames: D = 330, B1's cluster kernel) over the first 8 frames at a
+   fixed 10 LM iterations, kernels then plain versions: a finite result for
+   every frame, the cluster kernel launched (counts from 0 just before,
+   read just after) and neither the one-block kernel nor the library
+   route, the same decisions on >= SHARED_MIN_FRAMES leading frames within
+   POS_TOL_MM.
 
 5. Pipelined engine: the same configuration, 29 frames and events through
    ``frontend_stage`` → ``backend_step`` (one solve in flight) and
@@ -94,16 +106,17 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
      ATE is within 1.5 x the JAX engine's own split-drive ATE on the same
      events (JAX_SPLIT_ATE_M). One ``backend_step`` of the first run runs
      under ``torch.cuda.set_sync_debug_mode("warn")``: its host
-     synchronisations besides the fetch, by call site and op.
+     synchronisations by call site and op, at most SYNC_LIMIT (the fetch
+     and the marginalization's three ``eigh``).
    - Checkpoint round trip on the card: save the flushed engine, load it
      into a fresh ``cuda`` engine, save again; every array equal.
    - ``AsyncVioEngine(blocking=True)`` (frontend, backend and publisher
      threads) at the config's budget, in turns with the serial engine:
-     serial, plain, kernels (the pipelined main path: launch counts from 0
-     just before, read just after), kernels, plain, serial. Checks: no drop,
-     a result for every frame after the first, increasing timestamps,
-     ``finish()`` raising nothing, B1 and the fused matcher launched and
-     the distance matrix not (no kernel in the plain runs), ATE within 2 x
+     serial, pipelined (the pipelined main path: launch counts from 0 just
+     before, read just after), pipelined, serial. Checks: no drop, a result
+     for every frame after the first, increasing timestamps, ``finish()``
+     raising nothing, B1 and the fused matcher launched and no kernel off
+     the engine's path, ATE within 2 x
      JAX_SPLIT_ATE_M. Frames per second end to end (feed to ``finish()``)
      beside the serial engine's, and the device-busy share of the first 6
      frames of each from a ``torch.profiler`` trace.
@@ -111,13 +124,16 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
      processed and dropped frames add up to the frames fed.
 
 6. Loop closure.
-   - The two kernels at the loop closer's shapes, each bit for bit against
-     its plain version with planted ties and timed in turns: the distance
+   - The kernels at the loop closer's shapes, each bit for bit against its
+     plain version with planted ties and timed in turns: the distance
      matrix at the product vocabulary's word assignment, (2, 1012, 4) x
      (2, 256, 4) (a keyframe's 512 window + 500 fresh descriptors, both
      128-bit halves in one launch, a per-batch b), then argmin, beside one
-     fp16 ``matmul`` of the unpacked ±1 bits; the fused matcher at
-     verification, (512, 8) x (500, 8), distance 80, mutual, no gate.
+     fp16 ``matmul`` of the unpacked ±1 bits; the nearest-codeword kernel
+     (the word assignment's kernel) at that shape and at
+     ``train_vocabulary``'s (32768, 8) x (1024, 8), beside the distance
+     matrix + argmin and the fp16 ``matmul`` + argmax; the fused matcher
+     at verification, (512, 8) x (500, 8), distance 80, mutual, no gate.
    - The revisit drive of the JAX tests at full width (``revisit_exports``:
      the config's 800x600 camera, 12 traverse keyframes and 3 revisits with
      accumulating drift, rendered on the card) through ``LoopCloser`` with
@@ -125,7 +141,8 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
      counts from 0 just before, read just after) and with the plain
      versions under deterministic algorithms: loops verified, the same
      loops and inlier counts, the optimized path's RMSE below 0.6 x the
-     drifted one; ``add_keyframe`` ms per keyframe and its stages; then once
+     drifted one; the nearest codeword launched once per keyframe and the
+     distance matrix never; ``add_keyframe`` ms per keyframe and its stages; then once
      in 6-DoF (the same loops), replayed by a float64 closer on the CPU on
      the card's descriptors and P3P draws: the same loops, and the card's
      optimized path within 3 mm of the reference's and within a tenth of how
@@ -135,7 +152,7 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
      configuration on a short synthetic sequence with ``--save-checkpoint``,
      then a run that ``--resume``s it: a result for every frame, every
      output written and parsed, every healthy keyframe taken by the closer
-     and through the distance-matrix kernel once. The kernels' launches in
+     and through the nearest-codeword kernel once. The kernels' launches in
      the closer's ``add_keyframe`` are counted apart from the app's engine.
 
 The second-to-last line of standard output is the kernels' JSON record; the
@@ -172,6 +189,11 @@ from svin_tpu_torch.utils import Timing
 N_FRAMES = 5
 K = 400
 SOLVE_D = 120  # S·15 at the shipped window with fixed extrinsics
+# the cluster kernel's sizes: an S=22 window (15·22), then up to the
+# reference kernel's 1024
+LARGE_DS = (330, 384, 512, 768, 1024)
+LARGE_S_KEYFRAMES = 19  # + the config's 3 IMU frames: S = 22 states, D = 330
+LARGE_S_FRAMES = 8
 CFG = WindowConfig(num_states=8, num_landmarks=512, num_obs=4096, max_iterations=10)
 ENGINE_CONFIG = "configs/underwater_sonar_depth.yaml"
 # the JAX engine's SE(3)-aligned ATE on this sequence's events at a fixed 10
@@ -199,21 +221,38 @@ STAGES = ("2.0 frame_total", "2.1 detect_describe", "2.1.2 detect_fetch", "2.4 m
 
 # the plain versions of the kernels, as an engine's or a backend step's options
 PLAIN = dict(solve=solve.solve_spd_plain, matcher=hamming.match_descriptors_plain)
-# every kernel wrapper's launch count; the main path runs B1 and the fused
-# matcher, and no longer the distance matrix (kept for loop-closure
-# retrieval, held to its plain version and timed in the kernel phase)
-KERNELS = {"spd_solve_chol": solve.spd_solve_chol, "hamming_match": hamming.match_descriptors_cuda,
-           "hamming_matrix": hamming.hamming_matrix_cuda}
+# every kernel wrapper's launch count. The engine's main path (S=8, D=120)
+# runs B1's one-block kernel and the fused matcher; a window of S=22 states
+# (D=330) runs B1's cluster kernel; the loop closer runs the fused matcher
+# and the nearest-codeword kernel. The distance matrix is on no path (held
+# to its plain version and timed in the kernel phases). The solve's library
+# route (float64, D > 1024) is counted beside the kernels.
+KERNELS = {"spd_solve_chol": solve.spd_solve_chol, "spd_solve_cluster": solve.spd_solve_cluster,
+           "hamming_match": hamming.match_descriptors_cuda,
+           "hamming_matrix": hamming.hamming_matrix_cuda,
+           "hamming_nearest": hamming.nearest_codeword_cuda}
+COUNTERS = dict(KERNELS, solve_spd_library=solve.solve_spd_library)
 ON_PATH = ("spd_solve_chol", "hamming_match")
+# launches the engine's S=8 path must not make
+OFF_ENGINE_PATH = ("spd_solve_cluster", "hamming_matrix", "hamming_nearest", "solve_spd_library")
+# host synchronisations one backend_step may make: its fetch and the three
+# eigh of the marginalization (torch.linalg.eigh checks its info on the host)
+SYNC_LIMIT = 4
 
 
 def reset_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in COUNTERS.values():
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in KERNELS.items()}
+    return {k: fn.launches for k, fn in COUNTERS.items()}
+
+
+def off_engine_path(launches: dict) -> dict:
+    """The launches among ``launches`` that the engine's S=8 path must not
+    make."""
+    return {k: launches[k] for k in OFF_ENGINE_PATH if launches[k]}
 
 
 def log(msg: str) -> None:
@@ -224,6 +263,9 @@ def log(msg: str) -> None:
 # tensor cores 67 TFLOP/s; the bounds below use them
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# __popc issues at 16 per clock per SM on sm_90 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput): 132 SMs at a 1.98 GHz boost clock
+POPC_PER_S = 16 * 132 * 1.98e9
 TIMED_LAUNCHES = 200
 
 
@@ -263,13 +305,14 @@ def device_ms(fn, n: int = TIMED_LAUNCHES, warmup: int = 10) -> tuple:
     return a.elapsed_time(b) / n, 1e6 * host_s / n
 
 
-def in_turns(fns: dict, rounds: int = 3) -> dict:
-    """``device_ms`` of every function, in turns (the dict's order, repeated
-    ``rounds`` times); the median per function of device ms and host µs."""
+def in_turns(fns: dict, rounds: int = 3, n: int = TIMED_LAUNCHES) -> dict:
+    """``device_ms`` of every function (``n`` calls), in turns (the dict's
+    order, repeated ``rounds`` times); the median per function of device ms
+    and host µs."""
     got = {k: [] for k in fns}
     for _ in range(rounds):
         for k, fn in fns.items():
-            got[k].append(device_ms(fn))
+            got[k].append(device_ms(fn, n=n))
     return {k: (statistics.median(m for m, _ in v), statistics.median(h for _, h in v))
             for k, v in got.items()}
 
@@ -350,6 +393,79 @@ def check_matcher(args, what: str, **kw) -> int:
         if not (g.dtype == w.dtype and torch.equal(g, w)):
             raise AssertionError(f"fused matcher != plain: {what} {kw}")
     return int(want.valid.sum())
+
+
+def check_solve(H, rhs, what: str, counter: str) -> None:
+    """``solve_spd`` on one equilibrated system: relative residual <= 1e-4
+    and relative distance to the plain solution <= 1e-3, through the route
+    ``counter`` (one launch, no other route's)."""
+    before = read_counts()
+    x = solve.solve_spd(H, rhs)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
+    ref = solve.solve_spd_plain(H, rhs)
+    res = float(torch.linalg.norm(H @ x - rhs) / torch.linalg.norm(rhs))
+    dist = float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+    log(f"B1 solve_spd {what}: route {moved}, relative residual {res:.3e}, relative distance to "
+        f"plain {dist:.3e}")
+    if moved != {counter: 1}:
+        raise AssertionError(f"solve_spd {what}: routed {moved}, expected {counter}")
+    if not (res <= 1e-4 and dist <= 1e-3):
+        raise AssertionError(f"solve_spd out of tolerance at {what}")
+
+
+def large_solve_phase(rng, dev) -> dict:
+    """B1 past one block's shared memory: the cluster kernel through
+    ``solve_spd`` at D = 330 (the S=22 window), 384, 512, 768, 1024, a batch
+    with a non-SPD system, the float64 and D > 1024 library route; timed at
+    each D in turns with ``cholesky_ex`` + ``cholesky_solve``."""
+    for D in LARGE_DS:
+        check_solve(*equilibrated_spd(rng, D, dev), f"D={D}", "spd_solve_cluster")
+    Hs, bs = zip(*(equilibrated_spd(rng, 384, dev) for _ in range(3)))
+    Hb, bb = torch.stack(Hs), torch.stack(bs)
+    Hb[1] = -Hb[1]  # not positive definite
+    x, ref = solve.spd_solve_cluster(Hb, bb), solve.solve_spd_plain(Hb, bb)
+    ok = [0, 2]
+    if not (bool(torch.isnan(x[1]).all()) and bool(torch.isnan(ref[1]).all())
+            and not bool(torch.isnan(x[ok]).any())
+            and float(torch.linalg.norm(x[ok] - ref[ok]) / torch.linalg.norm(ref[ok])) <= 1e-3):
+        raise AssertionError("spd_solve_cluster batched: a non-SPD system is not all NaN, or the "
+                             "others are out of tolerance")
+    log("B1 spd_solve_cluster batched (3, 384, 384): the non-SPD system all NaN (as plain), the "
+        "other two within tolerance")
+    H, rhs = equilibrated_spd(rng, 330, dev)
+    before = solve.solve_spd_library.launches
+    x64 = solve.solve_spd(H.double(), rhs.double())
+    if not (solve.solve_spd_library.launches == before + 1
+            and torch.equal(x64, solve.solve_spd_plain(H.double(), rhs.double()))):
+        raise AssertionError("solve_spd float64: not the library route, or not the plain solution")
+    log("B1 solve_spd float64 D=330: the library route (cholesky_ex + cholesky_solve), equal to "
+        "solve_spd_plain")
+    check_solve(*equilibrated_spd(rng, 1100, dev), "D=1100 (past the kernels)", "solve_spd_library")
+    rows = {}
+    for D in LARGE_DS:
+        H, rhs = equilibrated_spd(rng, D, dev)
+        err = float((solve.spd_solve_cluster(H, rhs) - solve.solve_spd_plain(H, rhs)).abs().max())
+        n = TIMED_LAUNCHES if D <= 512 else 50
+        t = in_turns({"kernel": lambda H=H, r=rhs: solve.spd_solve_cluster(H, r),
+                      "library": lambda H=H, r=rhs: cholesky_library(H, r),
+                      "plain": lambda H=H, r=rhs: solve.solve_spd_plain(H, r)}, n=n)
+        bms, by = bound((D * (D + 1) // 2 + 2 * D) * 4, D**3 / 3 + 2 * D * D)
+        tr_k = traced_ms(lambda H=H, r=rhs: solve.spd_solve_cluster(H, r), n=20)
+        tr_l = traced_ms(lambda H=H, r=rhs: cholesky_library(H, r), n=20)
+        rows[D] = dict(max_abs_err=err, ms=t["kernel"][0], host_us=t["kernel"][1],
+                       plain_ms=t["plain"][0], library_ms=t["library"][0], bound_ms=bms,
+                       bound_by=by, traced_ms=tr_k[0], library_traced_ms=tr_l[0],
+                       library_ops_per_call=tr_l[1])
+        log(f"B1 cluster solve D={D}: device ms per launch kernel {t['kernel'][0]:.5f}, library "
+            f"(cholesky_ex + cholesky_solve) {t['library'][0]:.5f}, plain {t['plain'][0]:.5f}; "
+            f"host us per call {t['kernel'][1]:.1f}, {t['library'][1]:.1f}, {t['plain'][1]:.1f}; "
+            f"bound {bms * 1e3:.4f} us ({by}); max |x - plain| {err:.2e}; traced device time per "
+            f"call: kernel {traced_text(*tr_k)}, library {traced_text(*tr_l)}")
+    main = LARGE_DS[0]
+    return dict(rows[main], **{f"{k}_d{D}": rows[D][k] for D in LARGE_DS[1:]
+                               for k in ("ms", "library_ms", "plain_ms", "bound_ms", "traced_ms",
+                                         "library_traced_ms")})
 
 
 def kernel_phase(dev) -> dict:
@@ -438,6 +554,7 @@ def kernel_phase(dev) -> dict:
             f"host us per call {t['kernel'][1]:.1f}, {t['library'][1]:.1f}, {t['plain'][1]:.1f}; "
             f"bound {bms * 1e3:.5f} us ({by}); max |x - plain| {err:.2e}; traced device time "
             f"per call: kernel {traced_text(*tr_k)}, library {traced_text(*tr_l)}")
+    out["spd_solve_cluster"] = large_solve_phase(rng, dev)
     out["spd_solve_chol"] = dict(chol[SOLVE_D], ms_d132=chol[132]["ms"],
                                  library_ms_d132=chol[132]["library_ms"],
                                  bound_ms_d132=chol[132]["bound_ms"],
@@ -547,8 +664,8 @@ def slice_phase(dev) -> dict:
         if not all(after[k] > before[k] for k in ON_PATH):
             raise AssertionError(f"frame {i}: a kernel was not launched: {before} -> {after}")
     launches = read_counts()
-    if launches["hamming_matrix"]:
-        raise AssertionError(f"the distance-matrix kernel ran on the main path: {launches}")
+    if off_engine_path(launches):
+        raise AssertionError(f"a kernel off the backend step's path ran: {launches}")
     log(f"main path launches over {N_FRAMES} frames: {launches}")
 
     for i, (c, o) in enumerate(zip(cases, outs)):
@@ -822,27 +939,81 @@ def engine_phase(dev) -> dict:
                              f"decisions on >= {SHARED_MIN_FRAMES} frames, |dr| <= {POS_TOL_MM} "
                              f"mm there)")
 
-    # at the config's budget, in turns: plain, kernels (the main path: its
-    # launch counts are the ones reported), kernels, plain
+    # at the config's budget: plain, then kernels (the main path: its launch
+    # counts are the ones reported); the pipelined phase compares the
+    # serial engine's speed in turns
     plain = drive_engine("plain", cfg, events, gt, dev, **PLAIN)
     out = drive_engine("kernels", cfg, events, gt, dev)
-    again = drive_engine("kernels, again", cfg, events, gt, dev, verbose=False)
-    plain_again = drive_engine("plain, again", cfg, events, gt, dev, verbose=False, **PLAIN)
-    for r in (out, again, k_fix, k_fix2):
-        if not (all(r["launches"][k] > 0 for k in ON_PATH) and r["launches"]["hamming_matrix"] == 0):
-            raise AssertionError(f"engine: a kernel of the path was not launched, or the distance "
-                                 f"matrix was: {r['launches']}")
-    if any(v for r in (plain, plain_again, p_fix) for v in r["launches"].values()):
+    for r in (out, k_fix, k_fix2):
+        if not all(r["launches"][k] > 0 for k in ON_PATH) or off_engine_path(r["launches"]):
+            raise AssertionError(f"engine: a kernel of the path was not launched, or one off it "
+                                 f"was: {r['launches']}")
+    if any(v for r in (plain, p_fix) for v in r["launches"].values()):
         raise AssertionError("engine [plain]: a kernel was launched")
-    k_ms, p_ms = out["frame_ms"] + again["frame_ms"], plain["frame_ms"] + plain_again["frame_ms"]
-    log(f"engine add_frame over both runs each (plain, kernels, kernels, plain): kernels median "
+    k_ms, p_ms = out["frame_ms"], plain["frame_ms"]
+    log(f"engine add_frame at the budget (plain, then kernels): kernels median "
         f"{statistics.median(k_ms):.2f} ms, p90 {float(np.percentile(k_ms, 90)):.2f} ms; plain "
         f"median {statistics.median(p_ms):.2f} ms, p90 {float(np.percentile(p_ms, 90)):.2f} ms")
     log(f"engine ATE: 10 LM iterations: kernels {k_fix['ate']:.6f} m and {k_fix2['ate']:.6f} m, "
         f"plain {p_fix['ate']:.6f} m, JAX engine (CPU, float32) {JAX_ATE_M:.6f} m; at the "
-        f"config's budget: kernels {out['ate']:.6f} m and {again['ate']:.6f} m, plain "
-        f"{plain['ate']:.6f} m and {plain_again['ate']:.6f} m")
+        f"config's budget: kernels {out['ate']:.6f} m, plain {plain['ate']:.6f} m")
     return out["launches"], (cfg, events, gt)
+
+
+def large_window_phase(dev, cfg, events) -> dict:
+    """The serial engine with a window of S = 22 states (the config's 3 IMU
+    frames + 19 keyframes: D = 15 S = 330, past one block's shared memory)
+    over the first LARGE_S_FRAMES frames, at a fixed 10 LM iterations under
+    deterministic algorithms: with the kernels (B1's cluster kernel; counts
+    from 0 just before, read just after), then with the plain versions. A
+    finite result for every frame; the cluster kernel launched, B1's
+    one-block kernel and the library route not; the plain run making the
+    same decisions on at least SHARED_MIN_FRAMES leading frames within
+    POS_TOL_MM."""
+    big = dataclasses.replace(cfg, num_keyframes=LARGE_S_KEYFRAMES, time_limit=0.0)
+    first, n = [], 0
+    for ev in events:
+        n += ev.kind == "frame"
+        if n > LARGE_S_FRAMES:
+            break
+        first.append(ev)
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, kernels in (("kernels", {}), ("plain", PLAIN)):
+            eng = VioEngine(big, device=dev, **kernels)
+            reset_counts()
+            t0 = time.perf_counter()
+            results = run_events(eng, first)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            if not (len(results) == LARGE_S_FRAMES and eng.wcfg.num_states == 22
+                    and all(np.isfinite(r.T_WS.r).all() for r in results)):
+                raise AssertionError(f"S=22 engine [{name}]: {len(results)} results for "
+                                     f"{LARGE_S_FRAMES} frames, S={eng.wcfg.num_states}, or a "
+                                     f"non-finite pose")
+            runs[name] = dict(results=results, launches=launches)
+            log(f"engine S=22 (D=330) [{name}, 10 LM iterations]: {len(results)} results for "
+                f"{LARGE_S_FRAMES} frames, n_states {eng.n_states}, {wall:.2f} s; launches "
+                f"{launches}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    k = runs["kernels"]["launches"]
+    if not (k["spd_solve_cluster"] > 0 and k["hamming_match"] > 0 and k["spd_solve_chol"] == 0
+            and k["solve_spd_library"] == 0):
+        raise AssertionError(f"S=22 engine: the cluster kernel not launched, or the one-block "
+                             f"kernel or the library route was: {k}")
+    if any(runs["plain"]["launches"].values()):
+        raise AssertionError(f"S=22 engine [plain]: a kernel was launched: {runs['plain']['launches']}")
+    c = compare_runs(runs["kernels"], runs["plain"])
+    m = c["shared"]
+    log(f"engine S=22, kernels vs plain: same decisions on the first {m} frames (|dr| there max "
+        f"{max(c['pos_mm'][:m]):.3f} mm); |dr| per frame (mm) {[round(x, 2) for x in c['pos_mm']]}; "
+        f"cluster-kernel launches per frame {k['spd_solve_cluster'] / LARGE_S_FRAMES:.2f}")
+    if not (m >= SHARED_MIN_FRAMES and max(c["pos_mm"][:m]) <= POS_TOL_MM):
+        raise AssertionError("engine S=22: kernels vs plain out of tolerance")
+    return k
 
 
 # ---------------------------------------------------------------- pipelined
@@ -885,7 +1056,7 @@ def split_drive(engine, events, probe_frame=None):
     ``frontend_stage`` → ``backend_step``, then ``backend_flush``. Returns
     (results, the kernels' launches inside backend_step and the flush,
     the sync probe's sites or None)."""
-    results, inside, sites = [], dict.fromkeys(KERNELS, 0), None
+    results, inside, sites = [], dict.fromkeys(COUNTERS, 0), None
     n_frame = 0
 
     def step(fn, *args):
@@ -1020,11 +1191,11 @@ def pipelined_phase(dev, cfg, events, gt) -> dict:
             if len(results) != n:
                 raise AssertionError(f"split [{name}]: {len(results)} results for {n} frames")
             if kernels:
-                if launches != dict.fromkeys(KERNELS, 0):
+                if launches != dict.fromkeys(COUNTERS, 0):
                     raise AssertionError(f"split [{name}]: a kernel was launched: {launches}")
-            elif not (all(inside[k] > 0 for k in ON_PATH) and launches["hamming_matrix"] == 0):
+            elif not all(inside[k] > 0 for k in ON_PATH) or off_engine_path(launches):
                 raise AssertionError(f"split [{name}]: B1 and the fused matcher not both launched "
-                                     f"from backend_step, or the distance matrix was: {inside}")
+                                     f"from backend_step, or a kernel off the path was: {launches}")
             runs[name] = dict(results=results, ate=ate, launches=launches, inside=inside,
                               engine=eng, sites=sites)
             log(f"pipelined split drive [{name}, 10 LM iterations]: {len(results)} results for {n} "
@@ -1052,9 +1223,13 @@ def pipelined_phase(dev, cfg, events, gt) -> dict:
     fetch = sum(c for (site, _, _), c in sites.items() if site.endswith(" to_numpy_tree"))
     total = sum(sites.values())
     log(f"host synchronisations in one backend_step (frame 12, sync debug mode 'warn'): {total}, "
-        f"of them {fetch} in to_numpy_tree fetches, so {total - fetch} besides the fetch; by call site:")
+        f"of them {fetch} in to_numpy_tree fetches, so {total - fetch} besides the fetch (limit "
+        f"{SYNC_LIMIT}: the fetch and the marginalization's three eigh); by call site:")
     for (site, src, step_line), c in sites.most_common():
         log(f"  {c:4d} x {site}: {src}   (from backend_step line {step_line})")
+    if not (fetch >= 1 and total <= SYNC_LIMIT):
+        raise AssertionError(f"backend_step: {total} host synchronisations ({fetch} in fetches), "
+                             f"limit {SYNC_LIMIT}")
 
     # ---- checkpoint round trip on the card
     with tempfile.TemporaryDirectory() as tmp:
@@ -1068,14 +1243,14 @@ def pipelined_phase(dev, cfg, events, gt) -> dict:
             f"fresh cuda engine, save")
 
     # ---- AsyncVioEngine (blocking) at the budget, in turns with the serial engine
-    serial, asyncs, main_launches = [], {"kernels": [], "plain": []}, None
-    for name in ("serial", "plain", "kernels", "kernels", "plain", "serial"):
+    serial, asyncs, main_launches = [], {"kernels": []}, None
+    for name in ("serial", "kernels", "kernels", "serial"):
         if name == "serial":
             r = drive_engine("serial, beside the pipelined runs", cfg, events, gt, dev, verbose=False)
             serial.append(r["fps"])
             continue
-        eng = VioEngine(cfg, device=dev, **(PLAIN if name == "plain" else {}))
-        main = name == "kernels" and not asyncs["kernels"]
+        eng = VioEngine(cfg, device=dev)
+        main = not asyncs["kernels"]
         reset_counts()  # the pipelined main path: counts from 0 just before
         out = async_drive(eng, events)
         launches = read_counts()  # ... and read just after
@@ -1083,12 +1258,9 @@ def pipelined_phase(dev, cfg, events, gt) -> dict:
                               ATE_FACTOR["budget"], eng)
         if out["dropped"] or out["fed"] != n:
             raise AssertionError(f"async [{name}]: {out['dropped']} dropped of {out['fed']} fed")
-        if name == "plain":
-            if any(launches.values()):
-                raise AssertionError(f"async [plain]: a kernel was launched: {launches}")
-        elif not (all(launches[k] > 0 for k in ON_PATH) and launches["hamming_matrix"] == 0):
+        if not all(launches[k] > 0 for k in ON_PATH) or off_engine_path(launches):
             raise AssertionError(f"async [kernels]: B1 and the fused matcher not both launched, or "
-                                 f"the distance matrix was: {launches}")
+                                 f"a kernel off the path was: {launches}")
         if main:
             main_launches = launches
         asyncs[name].append(out["fps"])
@@ -1097,10 +1269,8 @@ def pipelined_phase(dev, cfg, events, gt) -> dict:
             f"{ATE_FACTOR['budget'] * JAX_SPLIT_ATE_M:.6f} m), {out['fps']:.3f} frames/s end to end "
             f"({out['wall']:.2f} s); launches {launches}, per frame "
             f"{ {k: round(v / n, 2) for k, v in launches.items()} }")
-    log(f"frames/s end to end, in turns (serial, async plain, async kernels, async kernels, async "
-        f"plain, serial): serial {[round(x, 3) for x in serial]}, pipelined kernels "
-        f"{[round(x, 3) for x in asyncs['kernels']]}, pipelined plain "
-        f"{[round(x, 3) for x in asyncs['plain']]}")
+    log(f"frames/s end to end, in turns (serial, async, async, serial): serial "
+        f"{[round(x, 3) for x in serial]}, pipelined {[round(x, 3) for x in asyncs['kernels']]}")
 
     # ---- device-busy share over the first frames, serial and pipelined
     first = []
@@ -1128,6 +1298,7 @@ def pipelined_phase(dev, cfg, events, gt) -> dict:
 
 # ------------------------------------------------------------ loop closure
 RETRIEVAL_K = 512 + 500  # WINDOW_CAP window descriptors + N_EXTRA_CORNERS fresh corners
+TRAIN_N = 32768  # train_vocabulary's pooled descriptors, against its 1024 codewords
 LOOP_RECENCY = 5  # RECENCY_EXCLUSION for the short revisit, as the JAX tests set it
 # the entry point's synthetic sequence, seconds: at 20 Hz the engine's first
 # keyframes track ~20% of their keypoints, and the health gate (new-keypoint
@@ -1189,6 +1360,7 @@ def loop_kernel_phase(dev) -> dict:
         f"{t['library+argmin'][0]:.5f}, plain {t['plain'][0]:.5f}; host us per call kernel "
         f"{t['kernel'][1]:.1f}, library {t['library'][1]:.1f}; bound {bms * 1e3:.4f} us ({by}); "
         f"traced: kernel {traced_text(*tr_k)}, library {traced_text(*tr_l)}")
+    out["nearest"] = nearest_phase(words, a, vocab, dev)
     # ---- verification: near matches, ties (repeated corners), masked rows
     A, B = words((512, 8)), words((500, 8))
     A[:200] = B[:200] ^ torch.as_tensor(rng.integers(0, 2, (200, 8)), dtype=torch.int32, device=dev)
@@ -1213,6 +1385,61 @@ def loop_kernel_phase(dev) -> dict:
         f"plain {t['plain'][0]:.5f}; host us {t['kernel'][1]:.1f}; bound {bms * 1e3:.4f} us ({by}); "
         f"traced: fused {traced_text(*tr_k)}, unfused {traced_text(*tr_u)}")
     return out
+
+
+def nearest_phase(words, a, vocab, dev) -> dict:
+    """The nearest-codeword kernel bit for bit against its plain version,
+    ties planted, at the retrieval shape (``a``, ``vocab``: the product
+    vocabulary's two halves, a per-batch codebook) and at train_vocabulary's
+    (32768, 8) x (1024, 8) (a shared codebook); timed in turns with the
+    distance-matrix kernel + argmin, one fp16 ``matmul`` of the unpacked ±1
+    bits + argmax (two PyTorch calls; the yardstick), and the plain version.
+    Two bounds: XOR, popcount and add per word at the float32 rate, and the
+    popcounts alone at ``__popc``'s issue rate."""
+    d2, v2 = words((TRAIN_N, 8)), words((1024, 8))
+    v2[900:] = v2[100:224]  # equal codewords: ties
+    d2[:124] = v2[100:224]
+    rows = {}
+    for name, desc, cb in (("retrieval", a, vocab), ("train_vocabulary", d2, v2)):
+        got = hamming.nearest_codeword_cuda(desc, cb)
+        want = hamming.nearest_codeword_plain(desc, cb)
+        torch.cuda.synchronize()
+        tie_lo, tie_hi = (100, 156) if name == "retrieval" else (100, 224)
+        hits = got[..., :56] if name == "retrieval" else got[:124]
+        if not (got.dtype == want.dtype == torch.int64 and torch.equal(got, want)
+                and bool(((hits >= tie_lo) & (hits < tie_hi)).all())):
+            raise AssertionError(f"nearest codeword != plain at the {name} shape")
+        W = desc.shape[-1]
+        pa, pbt = pm1_bits(desc), pm1_bits(cb).transpose(-1, -2).contiguous()
+        lib = lambda pa=pa, pbt=pbt: torch.argmax(torch.matmul(pa, pbt), dim=-1)  # noqa: E731
+        if not torch.equal(lib(), got):
+            raise AssertionError(f"fp16 +-1 matmul + argmax != nearest codeword at {name}")
+        fns = {"kernel": lambda d=desc, c=cb: hamming.nearest_codeword_cuda(d, c),
+               "matrix+argmin": lambda d=desc, c=cb: torch.argmin(hamming.hamming_matrix_cuda(d, c),
+                                                                  dim=-1),
+               "library": lib,
+               "plain": lambda d=desc, c=cb: hamming.nearest_codeword_plain(d, c)}
+        t = in_turns(fns, n=TIMED_LAUNCHES if name == "retrieval" else 20)
+        tr_k = traced_ms(fns["kernel"], n=20)
+        tr_m = traced_ms(fns["matrix+argmin"], n=20)
+        tr_l = traced_ms(lib, n=20)
+        n_words = got.numel() * cb.shape[-2] * W  # word comparisons
+        bms, by = bound((desc.numel() + cb.numel()) * 4 + got.numel() * 8, 3 * n_words)
+        popc_ms = 1e3 * n_words / POPC_PER_S
+        rows[name] = dict(max_abs_err=0, ms=t["kernel"][0], host_us=t["kernel"][1],
+                          plain_ms=t["plain"][0], library_ms=t["library"][0],
+                          matrix_argmin_ms=t["matrix+argmin"][0], bound_ms=bms, bound_by=by,
+                          popc_bound_ms=popc_ms, traced_ms=tr_k[0],
+                          matrix_argmin_traced_ms=tr_m[0], library_traced_ms=tr_l[0])
+        log(f"nearest codeword at the {name} shape {tuple(desc.shape)}x{tuple(cb.shape)}: bit-exact "
+            f"vs plain, planted ties to the lower index; device ms per call kernel "
+            f"{t['kernel'][0]:.5f}, distance-matrix kernel + argmin {t['matrix+argmin'][0]:.5f}, "
+            f"fp16 +-1 matmul + argmax (unpacking excluded) {t['library'][0]:.5f}, plain "
+            f"{t['plain'][0]:.5f}; host us per call {t['kernel'][1]:.1f}; bound {bms * 1e3:.4f} us "
+            f"({by}, float32 rate), popcounts at __popc's rate {popc_ms * 1e3:.4f} us; traced: "
+            f"kernel {traced_text(*tr_k)}, matrix + argmin {traced_text(*tr_m)}, matmul + argmax "
+            f"{traced_text(*tr_l)}")
+    return rows
 
 
 def revisit_exports(cfg, dev, n_traverse: int = 12, revisit_times=(0.0, 0.25, 0.5),
@@ -1374,7 +1601,7 @@ def entry_point_phase(dev) -> dict:
     underwater configuration with a short synthetic sequence and a
     checkpoint, then a second run resuming it. Every frame gets a result,
     every output is written and parses, the closer takes in every healthy
-    keyframe and each goes through the distance-matrix kernel."""
+    keyframe and each goes through the nearest-codeword kernel once."""
     import contextlib
     import io
 
@@ -1407,7 +1634,7 @@ def entry_point_phase(dev) -> dict:
         seen["closer"].update({k: after[k] - before[k] for k in KERNELS})
         if len(closer.keyframes) > n0:
             seen["taken"] += 1
-            seen["bow"].append(after["hamming_matrix"] - before["hamming_matrix"])
+            seen["bow"].append(after["hamming_nearest"] - before["hamming_nearest"])
         return out
 
     out = {}
@@ -1450,11 +1677,12 @@ def entry_point_phase(dev) -> dict:
                     raise AssertionError(f"run_synchronous [{run}]: {seen} results / frames, "
                                          f"state.csv {len(state)}, svin_vio {traj.shape}")
                 if not (seen["taken"] == seen["healthy"] and seen["bow"] == [1] * seen["taken"]
-                        and launches["hamming_matrix"] == seen["taken"]
+                        and launches["hamming_nearest"] == seen["taken"]
+                        and launches["hamming_matrix"] == 0
                         and all(launches[k] > 0 for k in ON_PATH)):
                     raise AssertionError(f"run_synchronous [{run}]: closer took {seen['taken']} of "
                                          f"{seen['healthy']} healthy of {seen['exports']} keyframes "
-                                         f"(health {dict(seen['reasons'])}); distance-matrix "
+                                         f"(health {dict(seen['reasons'])}); nearest-codeword "
                                          f"launches per keyframe {seen['bow']}, total {launches}")
                 n_restored = stats["n_restored"]
                 if run == "resumed" and not (n_restored == out["first"]["n_kf"]
@@ -1467,7 +1695,7 @@ def entry_point_phase(dev) -> dict:
                     f"{seen['results']} results for {seen['frames']} frames in {wall:.1f} s; "
                     f"{seen['exports']} keyframe exports, {seen['healthy']} healthy "
                     f"({dict(seen['reasons'])}), all taken by "
-                    f"the closer, each through the distance-matrix kernel once; restored "
+                    f"the closer, each through the nearest-codeword kernel once; restored "
                     f"{n_restored}; {len(files)} outputs parse; loops {stats['n_loops']}; launches "
                     f"{launches}, of them in the closer's add_keyframe {dict(seen['closer'])}")
         finally:
@@ -1559,17 +1787,19 @@ def loop_phase(dev) -> dict:
             main_run = loop_drive("kernels, 4-DoF", cfg, cam, exports, gt, dev)
             plain = loop_drive("plain, 4-DoF", cfg, cam, exports, gt, dev, verbose=False,
                                matcher=hamming.match_descriptors_plain,
-                               distance=hamming.hamming_matrix_plain)
+                               nearest=hamming.nearest_codeword_plain)
         finally:
             torch.use_deterministic_algorithms(False)
         if plain["loops"] != main_run["loops"]:
             raise AssertionError(f"loop drive: kernels {main_run['loops']} != plain {plain['loops']}")
         if any(plain["launches"].values()):
             raise AssertionError(f"loop drive [plain]: a kernel was launched: {plain['launches']}")
-        if not (main_run["launches"]["hamming_matrix"] == len(exports)
+        if not (main_run["launches"]["hamming_nearest"] == len(exports)
+                and main_run["launches"]["hamming_matrix"] == 0
                 and main_run["launches"]["hamming_match"] > 0):
-            raise AssertionError(f"loop drive: distance matrix not once per keyframe or the fused "
-                                 f"matcher not launched: {main_run['launches']}")
+            raise AssertionError(f"loop drive: nearest codeword not once per keyframe, the "
+                                 f"distance matrix launched, or the fused matcher not: "
+                                 f"{main_run['launches']}")
         log(f"loop drive, kernels vs plain: the same loops and inlier counts; optimized paths "
             f"within {float(np.abs(main_run['path'] - plain['path']).max()) * 1e3:.3f} mm")
         cfg6 = load_config(ENGINE_CONFIG)
@@ -1631,19 +1861,25 @@ def main() -> int:
     loop_timings = loop_kernel_phase(dev)
     launches = slice_phase(dev)
     engine_launches, inputs = engine_phase(dev)
+    large_launches = large_window_phase(dev, inputs[0], inputs[1])
     pipelined_launches = pipelined_phase(dev, *inputs)
     loop_launches, closer_launches = loop_phase(dev)
-    launches = {k: launches[k] + engine_launches[k] + pipelined_launches[k] + loop_launches[k]
-                for k in launches}
-    log(f"launches summed over the backend-step, engine, pipelined and loop-closure paths: "
-        f"{launches} (loop-closure phase, the apps' engine included: {loop_launches}; the loop "
-        f"closer alone: {closer_launches})")
+    launches = {k: launches[k] + engine_launches[k] + large_launches[k] + pipelined_launches[k]
+                + loop_launches[k] for k in KERNELS}
+    log(f"launches summed over the backend-step, engine (S=8 and S=22), pipelined and "
+        f"loop-closure paths: {launches} (S=22 engine: {large_launches}; loop-closure phase, the "
+        f"apps' engine included: {loop_launches}; the loop closer alone: {closer_launches})")
 
     ret, ver = loop_timings["retrieval"], loop_timings["verification"]
+    near = loop_timings["nearest"]
     record = {"kernels": [
         {"name": "spd_solve_chol", "route": "cuda", "source": "svin_tpu_torch/csrc/spd_solve_chol.cu",
          "replaces": "svin_tpu/ops/solve.py:59", "launches": launches["spd_solve_chol"],
          "shape": f"D={SOLVE_D}", **timings["spd_solve_chol"]},
+        {"name": "spd_solve_cluster", "route": "cuda",
+         "source": "svin_tpu_torch/csrc/spd_solve_cluster.cu",
+         "replaces": "svin_tpu/ops/solve.py:59", "launches": launches["spd_solve_cluster"],
+         "shape": f"D={LARGE_DS[0]}", **timings["spd_solve_cluster"]},
         {"name": "hamming_match", "route": "cuda", "source": "svin_tpu_torch/csrc/hamming_match.cu",
          "replaces": "svin_tpu/ops/hamming.py:44", "launches": launches["hamming_match"],
          "loop_launches": closer_launches["hamming_match"],
@@ -1654,6 +1890,11 @@ def main() -> int:
          "loop_launches": closer_launches["hamming_matrix"],
          "shape": f"(2,{RETRIEVAL_K},4)x(2,256,4)", **ret,
          **{f"map_{k}": v for k, v in timings["hamming_matrix"].items() if k != "max_abs_err"}},
+        {"name": "hamming_nearest", "route": "cuda", "source": "svin_tpu_torch/csrc/hamming_nearest.cu",
+         "replaces": "svin_tpu/ops/hamming.py:44", "launches": launches["hamming_nearest"],
+         "loop_launches": closer_launches["hamming_nearest"],
+         "shape": f"(2,{RETRIEVAL_K},4)x(2,256,4)", **near["retrieval"],
+         **{f"train_{k}": v for k, v in near["train_vocabulary"].items() if k != "max_abs_err"}},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -14,14 +14,15 @@ Layer map of the port:
   estimator/    window/factor tables, factors (reprojection, IMU, depth,
                 sonar, priors), LM + Schur solver, FEJ marginalization
   ops/          3x3 closed forms and the hand-written CUDA kernels: the
-                dense SPD solve (``ops/solve.py``, blocked Cholesky), the
-                Hamming distance matrix and the fused matcher
-                (``ops/hamming.py``), each with its plain PyTorch version
-                beside it
+                dense SPD solve (``ops/solve.py``, blocked Cholesky in one
+                block up to D = 320, in a thread-block cluster up to 1024),
+                the Hamming distance matrix, the fused matcher and the
+                nearest codeword (``ops/hamming.py``), each with its plain
+                PyTorch version beside it
   pipeline/     the engine's device programs, ``BackendStep``,
                 ``VioEngine`` (serial and pipelined), ``AsyncVioEngine``,
                 outputs, checkpoints, dataset sources
-  loopclosure/  BoW retrieval (the distance-matrix kernel assigns words),
+  loopclosure/  BoW retrieval (the nearest-codeword kernel assigns words),
                 seed-free P3P verification (the fused matcher), the 4/6-DoF
                 pose graph, ``LoopCloser``
   apps/         run_synchronous, run_live, train_vocabulary, evaluate,

@@ -1,7 +1,7 @@
 """Train a place-recognition vocabulary from a dataset.
 
 Detect and describe a strided subset of frames, run Hamming k-medoids on
-the pooled descriptors (the distance-matrix kernel on the card), compute
+the pooled descriptors (the nearest-codeword kernel on the card), compute
 TF_IDF word weights with each frame as one document, and save the
 vocabulary in the format both packages load.
 

@@ -51,12 +51,26 @@ def _is_namedtuple(x: Any) -> bool:
 
 
 def array_to_tensor(a, device=None, dtype=torch.float64) -> torch.Tensor:
+    """Host array → an independent tensor on ``device``: floats as
+    ``dtype``, packed uint32 words as their int32 view, other dtypes kept.
+    The dtype is converted on the host. For a CUDA device the array is
+    staged in pinned memory from PyTorch's caching host allocator and copied
+    with ``non_blocking=True`` on the current stream, so the host does not
+    wait for the device (a copy from pageable memory would); the allocator
+    keeps the staging block until the copy's stream event has passed, and a
+    consumer on another stream waits on an event and calls
+    ``record_stream``, as for any tensor made on this stream."""
     a = np.asarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     if np.issubdtype(a.dtype, np.floating):
-        return torch.as_tensor(np.array(a, np.float64), dtype=dtype, device=device)
-    return torch.as_tensor(np.array(a), device=device)
+        a = a.astype(torch.empty(0, dtype=dtype).numpy().dtype, copy=False)
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type != "cuda":
+        return torch.from_numpy(np.array(a)).to(dev)
+    host = torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype, pin_memory=True)
+    host.numpy()[...] = a
+    return host.to(dev, non_blocking=True)
 
 
 def from_numpy_tree(tree, device=None, dtype=torch.float64):

@@ -53,8 +53,9 @@
 //  - gridDim.x runs independent systems, one per block (batched solves).
 //  - Above 48 KB of shared memory (D > 128) the launcher raises the
 //    kernel's dynamic shared-memory limit once per device, not per launch,
-//    to the device's opt-in maximum (227 KB on the H100: D <= 320). A
-//    larger D fails at launch, and the launch's CUDA error is returned.
+//    to the device's opt-in maximum (227 KB on the H100: D <= 320,
+//    spd_solve_chol_max_d). A larger D fails at launch, and the launch's
+//    CUDA error is returned; solve_spd sends it to spd_solve_cluster.cu.
 
 #include <cuda_runtime.h>
 
@@ -248,6 +249,19 @@ size_t smem_bytes(int D) {
 }
 
 }  // namespace
+
+// The largest D whose system fits one block's shared memory on the current
+// device (320 on the H100), or -1 with no device.
+extern "C" int spd_solve_chol_max_d() {
+  int dev = 0, max_optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess) {
+    return -1;
+  }
+  int D = kNB;
+  while (smem_bytes(D + kNB) <= static_cast<size_t>(max_optin)) D += kNB;
+  return D;
+}
 
 // H: (batch, D, D) f32 (only the lower triangle is read), b: (batch, D),
 // x: (batch, D), all contiguous on the current device. Returns the

@@ -296,8 +296,8 @@ def marginalize_slot(
     )
     # gauge re-fixation: fresh prior on the new oldest pose at its current
     # estimate — position + yaw only (sqrt information 1e7), roll/pitch free
-    gauge_si = 1e7 * torch.eye(6, dtype=dtype, device=device)
-    gauge_si[3, 3] = gauge_si[4, 4] = 0.0
+    ar6 = torch.arange(6, device=device)
+    gauge_si = torch.diag(1e7 * ((ar6 < 3) | (ar6 == 5)).to(dtype))
     first = (ar == 0)
     refix = redo_fixation & first
     priors2 = priors2._replace(

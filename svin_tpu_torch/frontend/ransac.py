@@ -86,6 +86,11 @@ def _gn_pose_fit(T0: Transformation, p_W, bearings, weights, iters: int = 7,
     return T
 
 
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] for a 0-d index tensor, without a host synchronisation."""
+    return torch.index_select(x, 0, idx.reshape(1))[0]
+
+
 def absolute_pose_ransac(
     hyp_idx: torch.Tensor,  # (H, 3) sample indices
     p_W: torch.Tensor,  # (N,3) landmark positions
@@ -110,8 +115,8 @@ def absolute_pose_ransac(
     inls = valid & (err < thr)
     counts = inls.sum(dim=-1)
     best = torch.argmax(counts)
-    T_best = Transformation(r=Ts.r[best], q=Ts.q[best])
-    inl_best = inls[best]
+    T_best = Transformation(r=_take(Ts.r, best), q=_take(Ts.q, best))
+    inl_best = _take(inls, best)
 
     T_ref = _gn_pose_fit(T_best, p_W, bearings, inl_best.to(dtype), iters=refine_iters)
     err = torch.linalg.norm(_bearing_residual(T_ref, p_W, bearings), dim=-1)
@@ -157,7 +162,7 @@ def rotation_only_ransac(
     err = torch.linalg.norm(pred - bearings_a, dim=-1)
     inls = valid & (err < thr)
     best = torch.argmax(inls.sum(dim=-1))
-    inl_best = inls[best]
+    inl_best = _take(inls, best)
     q_ref = _kabsch_quat(bearings_a, bearings_b, inl_best.to(dtype))
     err = torch.linalg.norm(quat.rotate(q_ref, bearings_b) - bearings_a, dim=-1)
     inl = valid & (err < thr)
@@ -244,7 +249,7 @@ def relative_pose_ransac(
     r = _epipolar_residual(qs, ts, bearings_a, bearings_b)  # (H, N)
     inls = valid & (torch.abs(r) < thr)
     best = torch.argmax(inls.sum(dim=-1))
-    q_b, t_b, inl_b = qs[best], ts[best], inls[best]
+    q_b, t_b, inl_b = _take(qs, best), _take(ts, best), _take(inls, best)
     q_r, t_r = _gn_rel_fit(q_b, t_b, bearings_a, bearings_b, inl_b.to(dtype), iters=refine_iters)
     r = _epipolar_residual(q_r, t_r, bearings_a, bearings_b)
     inl = valid & (torch.abs(r) < thr)
@@ -337,11 +342,6 @@ def _p3p_grunert(f: torch.Tensor, P: torch.Tensor):
         quat.rotate(q_WC[..., None, :], X) + t[..., None, :] - Pe, dim=-1), dim=-1)
     scale = torch.sqrt(torch.clamp(a2 + b2 + c2, min=1e-9))[..., None]
     return t, q_WC, ok & finite & (err < 0.02 * scale)
-
-
-def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x[idx] for a 0-d index tensor, without a host synchronisation."""
-    return torch.index_select(x, 0, idx.reshape(1))[0]
 
 
 def absolute_pose_ransac_p3p(

@@ -54,12 +54,19 @@ class Preintegral(NamedTuple):
 
 
 def gravity_vector(params: ImuParameters, dtype=torch.float64, device=None) -> torch.Tensor:
-    """(0, 0, g). ``params.g`` is a float or a 0-d tensor (a module buffer);
-    either way no host-to-device copy is made, so the LM loop that
-    evaluates the IMU factors never waits on the device."""
-    g_W = torch.zeros(3, dtype=dtype, device=device)
-    g_W[2] = params.g
-    return g_W
+    """(0, 0, g). ``params.g`` is a float or a 0-d tensor (a module buffer).
+    No host-to-device copy is made (a float fills a device tensor; a
+    tensor on the device is used in place; a CPU tensor is read on the
+    host), so the LM loop that evaluates the IMU factors never waits on the
+    device."""
+    g = params.g
+    if isinstance(g, torch.Tensor) and g.device.type == "cpu":
+        g = float(g)
+    if isinstance(g, torch.Tensor):
+        g = g.to(device=device, dtype=dtype).reshape(1)
+    else:
+        g = torch.full((1,), g, dtype=dtype, device=device)
+    return torch.cat([torch.zeros(2, dtype=dtype, device=device), g])
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,8 @@ _EPS = 1e-12
 
 
 def identity(dtype=torch.float64, device=None) -> torch.Tensor:
-    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+    """[0, 0, 0, 1], made on ``device`` (no host-to-device copy)."""
+    return torch.nn.functional.pad(torch.ones(1, dtype=dtype, device=device), (3, 0))
 
 
 def normalize(q: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,7 @@ verification → pose-graph optimization → drift correction.
 Counterpart of the JAX package's ``loopclosure/loop_closure.py``. The
 keyframe payload is the dict ``VioEngine`` exports; the device work is the
 keyframe's descriptors (window keypoints re-described, fresh corners
-detected and described), the BoW words (the distance-matrix kernel),
+detected and described), the BoW words (the nearest-codeword kernel),
 verification (the fused matcher, then seed-free P3P RANSAC) and the dense
 pose-graph solve; the bookkeeping is host numpy. Each stage fetches once.
 
@@ -132,9 +132,9 @@ class LoopCloser:
     named) and ``dtype`` (default float32 on the card, float64 on the CPU)
     set where and in what precision the device stages run; the pose-graph
     tables are host numpy in the matching precision. ``matcher`` and
-    ``distance`` default to the kernel-dispatching ``hamming``
-    functions (``hamming.match_descriptors_plain`` / ``hamming_matrix_plain``
-    run the plain versions on the card). ``draw_p3p`` draws the P3P
+    ``nearest`` default to the kernel-dispatching ``hamming``
+    functions (``hamming.match_descriptors_plain`` /
+    ``nearest_codeword_plain`` run the plain versions on the card). ``draw_p3p`` draws the P3P
     hypotheses (see the module docstring)."""
 
     def __init__(
@@ -145,7 +145,7 @@ class LoopCloser:
         device=None,
         dtype=None,
         matcher: Callable = hamming.match_descriptors,
-        distance: Callable = hamming.hamming_matrix,
+        nearest: Callable = hamming.nearest_codeword,
         draw_p3p: Optional[Callable] = None,
     ):
         self.cfg = config if config is not None else VioConfig()
@@ -167,13 +167,13 @@ class LoopCloser:
             # 65k-word database, flat codebooks into the 1024-word one
             try:
                 pv = load_product_vocabulary(vocab_file)
-                self.db = ProductKeyframeDatabase(pv=pv, device=self.device, distance=distance)
+                self.db = ProductKeyframeDatabase(pv=pv, device=self.device, nearest=nearest)
             except (ValueError, KeyError):
                 vocab, weights = load_vocabulary(vocab_file)
                 self.db = KeyframeDatabase(vocab=vocab, weights=weights, device=self.device,
-                                           distance=distance)
+                                           nearest=nearest)
         else:
-            self.db = ProductKeyframeDatabase(device=self.device, distance=distance)
+            self.db = ProductKeyframeDatabase(device=self.device, nearest=nearest)
         self.keyframes: List[LoopKeyframe] = []
         self.capacity = capacity
         npdt = np.float64 if dtype == torch.float64 else np.float32

@@ -1,9 +1,10 @@
 """Place recognition: batched binary bag-of-words retrieval.
 
 Counterpart of the JAX package's ``loopclosure/retrieval.py``: descriptors
-are assigned to binary codebooks by one Hamming distance matrix (the
-hand-written CUDA kernel ``csrc/hamming.cu`` on the card, its plain version
-on the CPU) and ``argmin`` (first index on ties, as ``jnp.argmin``), pooled
+are assigned to binary codebooks by their nearest codeword in Hamming
+distance, first index on ties as ``jnp.argmin`` of the JAX package's
+distance matrix (the hand-written CUDA kernel ``csrc/hamming_nearest.cu``
+on the card, its plain version on the CPU; no distance matrix), pooled
 into an idf-weighted L1-normalized BoW vector, and scored against the
 database. Two databases: ``KeyframeDatabase`` (a flat 1024-word codebook,
 dense host scores) and ``ProductKeyframeDatabase`` (two 256-word codebooks
@@ -58,18 +59,18 @@ def make_vocabulary(seed: int = 7, size: int = VOCAB_SIZE, device=None) -> torch
 
 
 def assign_words(desc: torch.Tensor, vocab: torch.Tensor,
-                 distance: Callable = hamming.hamming_matrix) -> torch.Tensor:
+                 nearest: Callable = hamming.nearest_codeword) -> torch.Tensor:
     """(..., K) int64 nearest codeword per descriptor: (..., K, W) against
-    (..., V, W) by ``distance`` then argmin (first index on ties)."""
-    return torch.argmin(distance(desc, vocab), dim=-1)
+    (..., V, W) by ``nearest`` (first index on ties)."""
+    return nearest(desc, vocab)
 
 
 def bow_vector(desc: torch.Tensor, valid: torch.Tensor, vocab: torch.Tensor,
                vocab_size: int = VOCAB_SIZE, weights: Optional[torch.Tensor] = None,
-               distance: Callable = hamming.hamming_matrix) -> torch.Tensor:
+               nearest: Callable = hamming.nearest_codeword) -> torch.Tensor:
     """L1-normalized (tf·idf) BoW vector (V,) float32; ``weights=None`` is
     pure tf."""
-    word = assign_words(desc, vocab, distance)
+    word = assign_words(desc, vocab, nearest)
     hist = torch.zeros(vocab_size, dtype=torch.float32, device=desc.device)
     hist.index_add_(0, word, valid.to(torch.float32))
     if weights is not None:
@@ -186,11 +187,11 @@ class KeyframeDatabase:
 
     def __init__(self, capacity: int = 4096, vocab: Optional[torch.Tensor] = None,
                  weights: Optional[torch.Tensor] = None, device=None,
-                 distance: Callable = hamming.hamming_matrix):
+                 nearest: Callable = hamming.nearest_codeword):
         self.device = _database_device(device, "KeyframeDatabase")
         self.vocab = (vocab if vocab is not None else make_vocabulary()).to(self.device)
         self.weights = None if weights is None else weights.to(self.device, torch.float32)
-        self.distance = distance
+        self.nearest = nearest
         V = self.vocab.shape[0]
         self.capacity = capacity
         self.vectors = np.zeros((capacity, V), np.float32)
@@ -200,7 +201,7 @@ class KeyframeDatabase:
         d = as_words(desc, self.device)
         v = torch.as_tensor(valid, device=self.device)
         return bow_vector(d, v, self.vocab, self.vocab.shape[0], self.weights,
-                          self.distance).cpu().numpy()
+                          self.nearest).cpu().numpy()
 
     def add(self, desc, valid) -> int:
         """Add a keyframe; returns its database index."""
@@ -292,11 +293,11 @@ def train_product_vocabulary(descriptors: torch.Tensor, iters: int = 8,
 
 
 def product_words(desc: torch.Tensor, vocab1: torch.Tensor, vocab2: torch.Tensor,
-                  distance: Callable = hamming.hamming_matrix) -> torch.Tensor:
-    """(K,) int32 joint word ids: both halves as one batch of two distance
-    matrices, (2, K, 4) x (2, 256, 4) — one kernel launch on the card."""
+                  nearest: Callable = hamming.nearest_codeword) -> torch.Tensor:
+    """(K,) int32 joint word ids: both halves as one batch of two codeword
+    searches, (2, K, 4) x (2, 256, 4) — one kernel launch on the card."""
     halves = torch.stack([desc[:, :PQ_HALF_WORDS], desc[:, PQ_HALF_WORDS:]])
-    w = assign_words(halves, torch.stack([vocab1, vocab2]), distance)  # (2, K)
+    w = assign_words(halves, torch.stack([vocab1, vocab2]), nearest)  # (2, K)
     return (w[0] * PQ_WORDS + w[1]).to(torch.int32)
 
 
@@ -337,13 +338,13 @@ class ProductKeyframeDatabase:
     DEVICE_QUERY_AT = 1024
 
     def __init__(self, pv: Optional[ProductVocabulary] = None, capacity: int = 4096,
-                 device=None, distance: Callable = hamming.hamming_matrix):
+                 device=None, nearest: Callable = hamming.nearest_codeword):
         self.device = _database_device(device, "ProductKeyframeDatabase")
         pv = pv if pv is not None else make_product_vocabulary()
         self.pv = ProductVocabulary(pv.vocab1.to(self.device), pv.vocab2.to(self.device), pv.idf)
         self._idf_np = None if pv.idf is None else np.asarray(
             pv.idf.cpu() if isinstance(pv.idf, torch.Tensor) else pv.idf, np.float32)
-        self.distance = distance
+        self.nearest = nearest
         self.capacity = capacity
         self.word_ids = np.zeros((capacity, self.M), np.int32)
         self.word_w = np.zeros((capacity, self.M), np.float32)
@@ -358,7 +359,7 @@ class ProductKeyframeDatabase:
     def words(self, desc) -> np.ndarray:
         """(K,) int32 joint word ids of (K, 8) descriptors, fetched to the host."""
         d = as_words(desc, self.device)
-        return product_words(d, self.pv.vocab1, self.pv.vocab2, self.distance).cpu().numpy()
+        return product_words(d, self.pv.vocab1, self.pv.vocab2, self.nearest).cpu().numpy()
 
     def _sparse_bow(self, desc, valid):
         w = self.words(desc)

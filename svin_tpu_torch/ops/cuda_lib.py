@@ -114,11 +114,23 @@ def load() -> ctypes.CDLL:
     lib.hamming_max_words.argtypes = []
     lib.spd_solve_chol.restype = ci
     lib.spd_solve_chol.argtypes = [vp, vp, vp, ci, ci, vp]
+    lib.spd_solve_chol_max_d.restype = ci
+    lib.spd_solve_chol_max_d.argtypes = []
     lib.hamming_match.restype = ci
     lib.hamming_match.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, cll, cll, ci, ci,
                                   ctypes.c_float, ci, vp, vp, vp, vp, vp]
     lib.hamming_match_max_words.restype = ci
     lib.hamming_match_max_words.argtypes = []
+    lib.hamming_nearest.restype = ci
+    lib.hamming_nearest.argtypes = [vp, vp, vp, ci, ci, ci, ci, cll, vp]
+    lib.hamming_nearest_max_words.restype = ci
+    lib.hamming_nearest_max_words.argtypes = []
+    lib.spd_solve_cluster.restype = ci
+    lib.spd_solve_cluster.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    lib.spd_solve_cluster_workspace.restype = cll
+    lib.spd_solve_cluster_workspace.argtypes = [ci]
+    lib.spd_solve_cluster_max_d.restype = ci
+    lib.spd_solve_cluster_max_d.argtypes = []
     lib.svin_cuda_error_string.restype = ctypes.c_char_p
     lib.svin_cuda_error_string.argtypes = [ci]
     _lib = lib

@@ -1,9 +1,12 @@
 """Hamming-distance matching: XOR + popcount distance matrix (hand-written
 CUDA kernel ``csrc/hamming.cu`` with its plain PyTorch version beside it),
 best-match selection with distance threshold, ratio test and mutual
-consistency, and the fused matcher (hand-written CUDA kernel
+consistency, the fused matcher (hand-written CUDA kernel
 ``csrc/hamming_match.cu``: distances, mask and selection in one pass) that
-the engine's three matchers run on the card.
+the engine's three matchers run on the card, and the nearest codeword
+(hand-written CUDA kernel ``csrc/hamming_nearest.cu``: distances and the
+first-index argmin in one pass) that every word assignment of the loop
+closer runs on the card.
 
 Counterpart of the JAX package's ``ops/hamming.py``. Descriptors are packed 32-bit
 words held as **int32** (bit-identical to the JAX package's uint32 words:
@@ -83,6 +86,67 @@ def hamming_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return hamming_matrix_plain(a, b)
     raise ValueError(f"hamming_matrix: unsupported device {a.device}")
+
+
+def nearest_codeword_plain(desc: torch.Tensor, vocab: torch.Tensor) -> torch.Tensor:
+    """(..., K, W) x (..., V, W) int32 words → (..., K) int64: the first
+    index of the minimum Hamming distance, ``argmin`` of
+    ``hamming_matrix_plain``."""
+    return torch.argmin(hamming_matrix_plain(desc, vocab), dim=-1)
+
+
+def nearest_codeword_cuda(desc: torch.Tensor, vocab: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel: desc (K, W) or (B, K, W), vocab (V, W) (shared by the
+    batch) or (B, V, W), int32 contiguous on one CUDA device, W ≤ 8, V ≥ 1;
+    bit for bit ``nearest_codeword_plain``, ties to the lowest index,
+    without the distance matrix. Launches on the current stream, does not
+    synchronise."""
+    a, b = desc, vocab
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError(f"nearest_codeword_cuda takes int32 words, got {a.dtype}, {b.dtype}")
+    if a.dim() not in (2, 3) or b.dim() not in (2, 3) or a.shape[-1] != b.shape[-1]:
+        raise ValueError(f"nearest_codeword_cuda shapes: desc {tuple(a.shape)}, vocab {tuple(b.shape)}")
+    if b.dim() == 3 and (a.dim() != 3 or b.shape[0] != a.shape[0]):
+        raise ValueError(f"nearest_codeword_cuda batch mismatch: desc {tuple(a.shape)}, vocab "
+                         f"{tuple(b.shape)}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("nearest_codeword_cuda needs contiguous desc and vocab")
+    if not (a.is_cuda and b.is_cuda and a.device == b.device):
+        raise ValueError(f"nearest_codeword_cuda needs CUDA tensors on one device, got {a.device}, "
+                         f"{b.device}")
+    K, V, W = a.shape[-2], b.shape[-2], a.shape[-1]
+    if V < 1:
+        raise ValueError("nearest_codeword_cuda: an empty codebook")
+    lib = cuda_lib.load()
+    if W < 1 or W > lib.hamming_nearest_max_words():
+        raise ValueError(f"nearest_codeword_cuda: W={W} words not supported")
+    batch = a.shape[0] if a.dim() == 3 else 1
+    out = torch.empty(a.shape[:-1], dtype=torch.int64, device=a.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.hamming_nearest(
+            ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), batch, K, V, W, V * W if b.dim() == 3 else 0,
+            ctypes.c_void_p(stream),
+        )
+    cuda_lib.check(lib, err, "hamming_nearest")
+    nearest_codeword_cuda.launches += 1
+    return out
+
+
+nearest_codeword_cuda.launches = 0
+
+
+def nearest_codeword(desc: torch.Tensor, vocab: torch.Tensor) -> torch.Tensor:
+    """Nearest codeword per descriptor: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if desc.device.type == "cuda":
+        return nearest_codeword_cuda(desc, vocab)
+    if desc.device.type == "cpu":
+        return nearest_codeword_plain(desc, vocab)
+    raise ValueError(f"nearest_codeword: unsupported device {desc.device}")
 
 
 class MatchResult(NamedTuple):

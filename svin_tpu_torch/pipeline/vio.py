@@ -58,7 +58,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..convert import from_numpy_tree, to_numpy_tree
+from ..convert import array_to_tensor, from_numpy_tree, to_numpy_tree
 from ..estimator import WindowConfig, empty_factors, empty_window, marginalize_slot, rig_params
 from ..frontend import ScaleRefiner, draw_hypotheses as _draw
 from ..frontend.hull import keyframe_overlap_ratio
@@ -87,11 +87,11 @@ def _as_uint8(img) -> np.ndarray:
 
 def _as_upload(img, device):
     """Host image → the upload form, a uint8 tensor on ``device``
-    (``_as_uint8``); tensors already on the engine's device pass through
-    untouched."""
+    (``_as_uint8``, then ``array_to_tensor``); tensors already on the
+    engine's device pass through untouched."""
     if isinstance(img, torch.Tensor):
         return img.to(device)
-    return torch.as_tensor(_as_uint8(img), device=device)
+    return array_to_tensor(_as_uint8(img), device)
 
 
 _TF32_LOCK = threading.Lock()
@@ -166,6 +166,9 @@ class _PendingOpt:
     n_new: int
     t_dispatch: float
     static_iters: int = 0
+    # a keyframe's processed cam0 image on the device, fetched with the
+    # opt outputs (one fetch per step) for its export
+    image0: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -297,16 +300,12 @@ class VioEngine:
     # ------------------------------------------------------------ transfer
     def _dev(self, a, dtype=None) -> torch.Tensor:
         """Host array → tensor on the engine's device (floats in the
-        engine's dtype, uint32 words as their int32 view). A tensor (an
+        engine's dtype, uint32 words as their int32 view;
+        ``array_to_tensor``: no host wait on a card). A tensor (an
         un-fetched program output) passes through."""
         if isinstance(a, torch.Tensor):
             return a
-        a = np.asarray(a)
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        if np.issubdtype(a.dtype, np.floating):
-            return torch.as_tensor(a, dtype=dtype or self.dtype, device=self.device)
-        return torch.as_tensor(a, device=self.device)
+        return array_to_tensor(a, self.device, dtype or self.dtype)
 
     def _up(self, tree):
         """Host numpy tree (window, factors) → tensors on the device."""
@@ -596,9 +595,10 @@ class VioEngine:
             m_out = self._dispatch_match(fd, T_r_m, T_q_m, hp_W=hp_dev, lm_valid=lmv_dev)
             s_out = self._dispatch_stereo(fd, T_r_m, T_q_m, hp_W=hp_dev, lm_valid=lmv_dev)
             with Timer("2.4.2 match_fetch"):
-                opt_f, pre_f, m_f, s_f = to_numpy_tree(
-                    (None if p is None else p.opt_out, preint_out, m_out, s_out))
-            prev_result = self._finalize_pending(opt_f) if p is not None else None
+                opt_f, pre_f, m_f, s_f, img_f = to_numpy_tree(
+                    (None if p is None else p.opt_out, preint_out, m_out, s_out,
+                     None if p is None else p.image0))
+            prev_result = self._finalize_pending(opt_f, img_f) if p is not None else None
 
             # ---- this frame's host stages on the now-consistent window ----
             slot = self.n_states
@@ -629,12 +629,13 @@ class VioEngine:
                 lm_valid_before=lm_valid_before,
                 slot_post=slot - (1 if victim is not None else 0), t=t, images=images,
                 is_kf=is_kf, n_tracked=n_tracked, n_new=n_new, t_dispatch=time.perf_counter(),
-                static_iters=bound,
+                static_iters=bound, image0=fd.image0 if is_kf else None,
             )
             return prev_result
 
-    def _finalize_pending(self, opt_f) -> FrameResult:
-        """Apply a fetched in-flight optimize and emit its frame's result."""
+    def _finalize_pending(self, opt_f, image0=None) -> FrameResult:
+        """Apply a fetched in-flight optimize and emit its frame's result
+        (``image0``: a keyframe's fetched cam0 image, for its export)."""
         p = self._pending
         self._pending = None
         if p.victim is None:
@@ -652,7 +653,7 @@ class VioEngine:
             timestamp=p.t, T_WS=Transformation(r=T_WS.r.copy(), q=T_WS.q.copy()),
             speed_bias=self.window.speed_bias[slot].copy(), is_keyframe=p.is_kf,
             num_tracked=p.n_tracked, num_new_landmarks=p.n_new, cost=self._cost_last,
-            keyframe_export=self._timed_export(slot, p.images) if p.is_kf else None,
+            keyframe_export=self._timed_export(slot, p.images, image0) if p.is_kf else None,
             lm_iterations=self._lm_iterations_last,
         )
         self.trajectory.append((p.t, result.T_WS.r, result.T_WS.q))
@@ -667,7 +668,8 @@ class VioEngine:
         if self._pending is None:
             return None
         with _float32_matmuls():
-            return self._finalize_pending(to_numpy_tree(self._pending.opt_out))
+            return self._finalize_pending(*to_numpy_tree((self._pending.opt_out,
+                                                          self._pending.image0)))
 
     def _iteration_budget(self) -> int:
         """Per-frame LM iteration budget from the config's real-time
@@ -1246,14 +1248,15 @@ class VioEngine:
         self.n_states -= 1
 
     # --------------------------------------------------------- kf export
-    def _timed_export(self, slot: int, images) -> dict:
+    def _timed_export(self, slot: int, images, image0=None) -> dict:
         with Timer("3.2 kf_export"):
-            return self._export_keyframe(slot, images)
+            return self._export_keyframe(slot, images, image0)
 
-    def _export_keyframe(self, slot: int, images) -> dict:
+    def _export_keyframe(self, slot: int, images, image0=None) -> dict:
         """Keyframe payload for loop closure (the pose_graph ABI): processed
-        left image, T_WC, per-point [3D point, landmark id, keypoint uv,
-        quality], covisible keyframe indices, and health fields."""
+        left image (``image0`` when already fetched), T_WC, per-point [3D
+        point, landmark id, keypoint uv, quality], covisible keyframe
+        indices, and health fields."""
         fd = self.frames[slot]
         T_WS = self.window.pose(slot)
         r_WC, q_WC = self._T_WC_np(T_WS, 0)
@@ -1284,8 +1287,10 @@ class VioEngine:
         return {
             "kf_index": self.kf_count,
             "timestamp": fd.timestamp,
-            # the processed cam0 image, fetched here (keyframes only)
-            "image": (fd.image0.cpu().numpy() if fd.image0 is not None else np.asarray(images[0])),
+            # the processed cam0 image (keyframes only): fetched with the
+            # pipelined step's outputs, or here
+            "image": (image0 if image0 is not None else fd.image0.cpu().numpy()
+                      if fd.image0 is not None else np.asarray(images[0])),
             "T_WC_r": np.asarray(r_WC),
             "T_WC_q": np.asarray(q_WC),
             "points_W": self.window.hp_W[lm_slots, :3],

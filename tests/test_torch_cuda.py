@@ -7,12 +7,16 @@ the xdist options of pytest.ini:
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: B2's distance matrix and the fused matcher are integer-exact
-(bit for bit against the plain matcher). B1 (the float32 blocked-Cholesky
-kernel vs float32 ``cholesky_ex`` + ``cholesky_solve``) on
-Jacobi-equilibrated SPD systems: relative residual ≤ 1e-4 and relative
-distance to the plain solution ≤ 1e-3; a system that does not factor gives
-all NaN in both. The backend step with kernels vs with plain versions:
+Tolerances: B2's distance matrix, the fused matcher and the nearest
+codeword are integer-exact (bit for bit against their plain versions, ties
+included). B1 (the float32 blocked-Cholesky kernels, one block up to D = 320
+and one thread-block cluster up to 1024, vs float32 ``cholesky_ex`` +
+``cholesky_solve``) on Jacobi-equilibrated SPD systems: relative residual ≤
+1e-4 and relative distance to the plain solution ≤ 1e-3; a system that does
+not factor gives all NaN in both; float64 and D > 1024 take the library
+route and equal the plain solve. One pipelined ``backend_step`` makes at
+most 4 host synchronisations (its fetch and the marginalization's three
+``eigh``). The backend step with kernels vs with plain versions:
 identical matches (the matcher is exact), cost within 1% and positions
 within 1 mm (the two solvers round differently and the LM loop carries that
 forward). The
@@ -104,16 +108,92 @@ def test_solve_kernel_batched_and_refusals(dev):
     assert float(torch.linalg.norm(H @ x - b) / torch.linalg.norm(b)) <= 1e-4
     assert float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref)) <= 1e-3
     with pytest.raises(TypeError):
-        tsolve.solve_spd(H.double(), b.double())  # float32 only: no silent demotion
-    # D = 320 is the largest that one block's shared memory holds; past it
-    # the launch fails and its CUDA error is raised
+        tsolve.spd_solve_chol(H.double(), b.double())  # the kernel is float32 only
+    # D = 320 is the largest that one block's shared memory holds, and
+    # solve_spd sends it to the one-block kernel
+    assert tsolve.spd_solve_chol_max_d(dev) == 320
     H, b = (torch.as_tensor(v, dtype=torch.float32, device=dev) for v in _equilibrated_spd(rng, 320))
-    x = tsolve.spd_solve_chol(H, b)
+    n0 = tsolve.spd_solve_chol.launches
+    x = tsolve.solve_spd(H, b)
+    assert tsolve.spd_solve_chol.launches == n0 + 1
     assert float(torch.linalg.norm(H @ x - b) / torch.linalg.norm(b)) <= 1e-4
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        tsolve.solve_spd(torch.eye(321, device=dev), torch.ones(321, device=dev))
     with pytest.raises(TypeError):
         tham.hamming_matrix(torch.zeros((4, 8), device=dev), torch.zeros((4, 8), device=dev))
+
+
+@pytest.mark.parametrize("D", [330, 384, 1024])
+def test_cluster_solve_matches_plain(dev, D):
+    """Past one block's shared memory (D > 320) up to the reference kernel's
+    1024, solve_spd runs the cluster kernel."""
+    rng = np.random.default_rng(D)
+    H, b = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in _equilibrated_spd(rng, D))
+    counts = (tsolve.spd_solve_chol.launches, tsolve.spd_solve_cluster.launches,
+              tsolve.solve_spd_library.launches)
+    x = tsolve.solve_spd(H, b)
+    torch.cuda.synchronize()
+    assert (tsolve.spd_solve_chol.launches, tsolve.spd_solve_cluster.launches,
+            tsolve.solve_spd_library.launches) == (counts[0], counts[1] + 1, counts[2])
+    ref = tsolve.solve_spd_plain(H, b)
+    assert float(torch.linalg.norm(H @ x - b) / torch.linalg.norm(b)) <= 1e-4
+    assert float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref)) <= 1e-3
+
+
+def test_cluster_solve_batched_small_and_not_positive_definite(dev):
+    """A batch of clusters with one non-SPD system (all NaN, the others
+    solve), and sizes off the path (one panel, a ragged one)."""
+    rng = np.random.default_rng(2)
+    H, b = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in _equilibrated_spd(rng, 400, batch=(3,)))
+    H[1] = -H[1]
+    x, ref = tsolve.spd_solve_cluster(H, b), tsolve.solve_spd_plain(H, b)
+    assert bool(torch.isnan(x[1]).all()) and bool(torch.isnan(ref[1]).all())
+    keep = [0, 2]
+    assert not bool(torch.isnan(x[keep]).any())
+    assert float((x[keep] - ref[keep]).abs().max() / ref[keep].abs().max()) <= 1e-3
+    for D in (1, 32, 45):
+        H, b = (torch.as_tensor(v, dtype=torch.float32, device=dev) for v in _equilibrated_spd(rng, D))
+        x = tsolve.spd_solve_cluster(H, b)
+        assert float(torch.linalg.norm(H @ x - b) / torch.linalg.norm(b)) <= 1e-4
+
+
+def test_solve_float64_and_past_1024_take_the_library_route(dev):
+    """float64 keeps Cholesky for its precision, and D > 1024 is past the
+    kernels, as in the reference: both go to the library route."""
+    rng = np.random.default_rng(3)
+    for D, dtype in ((330, torch.float64), (60, torch.float64), (1100, torch.float32)):
+        H, b = (torch.as_tensor(x, dtype=dtype, device=dev) for x in _equilibrated_spd(rng, D))
+        counts = (tsolve.spd_solve_chol.launches, tsolve.spd_solve_cluster.launches,
+                  tsolve.solve_spd_library.launches)
+        x = tsolve.solve_spd(H, b)
+        assert (tsolve.spd_solve_chol.launches, tsolve.spd_solve_cluster.launches,
+                tsolve.solve_spd_library.launches) == (counts[0], counts[1], counts[2] + 1)
+        assert x.dtype == dtype and torch.equal(x, tsolve.solve_spd_plain(H, b))
+
+
+@pytest.mark.parametrize("shape", ["retrieval", "train_vocabulary", "ragged"])
+def test_nearest_codeword_matches_plain(dev, shape):
+    """The nearest-codeword kernel bit for bit against its plain version with
+    planted ties: the product vocabulary's word assignment (both halves, a
+    per-batch codebook), train_vocabulary's (32768, 8) x (1024, 8) (a shared
+    codebook, more than one shared-memory tile), and odd widths and sizes."""
+    rng = np.random.default_rng(len(shape))
+    if shape == "retrieval":
+        desc, vocab = _desc(rng, (2, 1012, 4)), _desc(rng, (2, 256, 4))
+    elif shape == "train_vocabulary":
+        desc, vocab = _desc(rng, (32768, 8)), _desc(rng, (1024, 8))
+    else:
+        desc, vocab = _desc(rng, (3, 37, 5)), _desc(rng, (3000, 5))
+    n = min(50, vocab.shape[-2] // 4, desc.shape[-2])
+    vocab[..., -n:, :] = vocab[..., :n, :]  # equal codewords
+    desc[..., :n, :] = vocab[..., :n, :]  # hits on them
+    desc, vocab = desc.to(dev), vocab.to(dev)
+    n0 = tham.nearest_codeword_cuda.launches
+    got = tham.nearest_codeword(desc, vocab)
+    torch.cuda.synchronize()
+    assert tham.nearest_codeword_cuda.launches == n0 + 1
+    want = tham.nearest_codeword_plain(desc, vocab)
+    assert got.dtype == want.dtype == torch.int64 and torch.equal(got, want)
+    assert bool((got[..., :n] == torch.arange(n, device=dev)).all())
 
 
 @pytest.mark.parametrize("kind", list(problems.MATCHER_SHAPES))
@@ -189,14 +269,13 @@ def test_lm_loop_never_waits_on_the_host(dev):
     assert float(res.cost) < float(res.cost0)
 
 
-def _small_engine_run(dev, **kernels):
-    """The engine's serial path on the card at the CPU tests' size: two
-    200x150 cameras, 300 blobs, 6 Hz for 2.6 s (the port's own sequence)."""
+def _small_setup(dev):
+    """(config, rig, events, renderer) at the CPU tests' size: two 200x150
+    cameras, 300 blobs, 6 Hz for 2.6 s (the port's own sequence)."""
     from svin_tpu_torch import sim
     from svin_tpu_torch.cameras import NCameraSystem, make_camera
-    from svin_tpu_torch.evaluation import ate_rmse
     from svin_tpu_torch.kinematics import from_rq
-    from svin_tpu_torch.pipeline import VioConfig, VioEngine, run_events, synthetic_sequence
+    from svin_tpu_torch.pipeline import VioConfig, synthetic_sequence
 
     cam = make_camera(200, 150, 160.0, 160.0, 100.0, 75.0, model="none", device=dev)
     rig = NCameraSystem()
@@ -207,6 +286,15 @@ def _small_engine_run(dev, **kernels):
         rig, duration=2.6, cam_rate=6.0, imu_rate=100.0, imu_params=cfg.imu, seed=3,
         n_points=300, traj=sim.default_trajectory(scale=0.4, ramp_tau=0.8), spread=6.0,
         depth_offset=3.0, t_first_frame=0.12)
+    return cfg, rig, events, renderer
+
+
+def _small_engine_run(dev, **kernels):
+    """The engine's serial path on the card at the CPU tests' size."""
+    from svin_tpu_torch.evaluation import ate_rmse
+    from svin_tpu_torch.pipeline import VioEngine, run_events
+
+    cfg, rig, events, renderer = _small_setup(dev)
     engine = VioEngine(cfg, rig=rig, device=dev, **kernels)
     results = run_events(engine, events)
     est = np.stack([r.T_WS.r for r in results])
@@ -230,6 +318,66 @@ def test_engine_runs_on_the_card_with_kernels_and_plain(dev):
                                         matcher=tham.match_descriptors_plain)
     assert ate_plain < 0.05, ate_plain
     assert (tsolve.spd_solve_chol.launches, tham.match_descriptors_cuda.launches) == (n_solve, n_match)
+
+
+def test_backend_step_syncs_only_to_fetch(dev):
+    """One pipelined ``backend_step`` (the window full and marginalizing)
+    under ``set_sync_debug_mode("warn")``: at most 4 host synchronisations,
+    its one fetch and the marginalization's three ``eigh``; uploads are
+    pinned and non-blocking, and no Python value is written into a device
+    tensor."""
+    import warnings
+
+    from svin_tpu_torch.pipeline import VioEngine
+
+    cfg, rig, events, _ = _small_setup(dev)
+    engine = VioEngine(cfg, rig=rig, device=dev)
+    n_frame, counted = 0, None
+    for ev in events:
+        if ev.kind == "imu":
+            engine.add_imu_measurement(ev.t, *ev.imu)
+        elif ev.kind == "depth":
+            engine.add_depth_measurement(ev.t, ev.depth)
+        elif ev.kind == "sonar":
+            engine.add_sonar_measurement(ev.t, *ev.sonar)
+        elif engine.n_states == 0:
+            engine.add_frame(ev.t, ev.images)
+        else:
+            t_s, fd = engine.frontend_stage(ev.t, ev.images)
+            n_frame += 1
+            if n_frame != 10:
+                engine.backend_step(t_s, ev.images, fd)
+                continue
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    engine.backend_step(t_s, ev.images, fd)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            counted = [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+            assert engine._pending.victim is not None  # the solve queued marginalizes
+            break
+    assert counted is not None and 1 <= len(counted) <= 4, counted
+
+
+def test_upload_on_the_card_equals_the_host_conversion(dev):
+    """``convert.array_to_tensor`` through pinned memory and a non-blocking
+    copy: the same tensors as the host conversion, for the engine's dtypes."""
+    from svin_tpu_torch.convert import array_to_tensor
+
+    rng = np.random.default_rng(5)
+    arrays = [rng.standard_normal((40, 3)), rng.standard_normal(7).astype(np.float32),
+              np.float64(0.25), np.arange(12, dtype=np.int64), rng.random(10) < 0.5,
+              rng.integers(0, 2**32, size=(6, 8), dtype=np.uint64).astype(np.uint32),
+              np.arange(255, dtype=np.uint8)]
+    for dtype in (torch.float32, torch.float64):
+        got = [array_to_tensor(a, dev, dtype) for a in arrays]
+        torch.cuda.synchronize()
+        for a, g in zip(arrays, got):
+            want = array_to_tensor(a, "cpu", dtype)
+            assert g.is_cuda and g.dtype == want.dtype and torch.equal(g.cpu(), want)
 
 
 def test_hamming_kernel_at_the_retrieval_shape(dev):

@@ -131,6 +131,22 @@ def test_optimize_matches_jax(prob, jax_optimize, n_iters):
     assert_tree_close(got, want, rtol=1e-7, atol_rel=1e-9, name="result")
 
 
+def test_optimize_matches_jax_at_22_states():
+    """A window of S = 22 states (D = 15 S = 330: past the card's one-block
+    solve kernel, where the cluster kernel takes over) with few landmarks:
+    the LM loop against the JAX package's, 4 iterations (the problem from
+    the port's builder, handed over as for the other optimize tests; the
+    JAX builder's eager tracing takes some 40 s at this size)."""
+    jcfg, tcfg, (jw, jf, jrig), (tw, tf, trig) = port_problem(
+        S=22, L=48, O=1024, n_landmarks=32, max_iterations=4)
+    want = jax.jit(lambda w, f: jgn.optimize(w, f, jrig, JIMU, jcfg, n_iters=4))(jw, jf)
+    got = tgn.optimize(tw, tf, trig, TIMU, tcfg, n_iters=4)
+    assert got.window.r.shape == (22, 3)
+    assert int(got.iterations) == int(want.iterations) > 0
+    assert float(got.cost) < float(got.cost0)
+    assert_tree_close(got, want, rtol=1e-7, atol_rel=1e-9, name="result")
+
+
 def test_optimize_freezes_past_budget(prob):
     """Iterations at or past n_iters leave the state bit-identical: a loop
     of 5 with a budget of 2 equals a loop of 2."""

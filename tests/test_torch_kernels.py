@@ -71,7 +71,7 @@ def _spd(rng, D):
     return A @ A.T + D * np.eye(D), rng.standard_normal(D)
 
 
-@pytest.mark.parametrize("D", [5, 120, 132])
+@pytest.mark.parametrize("D", [5, 120, 132, 330, 384, 1024])
 def test_solve_plain_matches_jax(D):
     rng = np.random.default_rng(D)
     H, b = _spd(rng, D)
@@ -94,6 +94,61 @@ def test_solve_plain_batched_and_not_positive_definite():
     assert bool(torch.isnan(bad).all())
 
 
+def test_solve_on_the_cpu_takes_no_kernel_route():
+    """CPU tensors go to the plain Cholesky whatever their size and dtype:
+    no route's count moves (the kernels and the library route are CUDA's)."""
+    routes = (tsolve.spd_solve_chol, tsolve.spd_solve_cluster, tsolve.solve_spd_library)
+    before = [f.launches for f in routes]
+    rng = np.random.default_rng(4)
+    for D, dtype in ((330, torch.float32), (40, torch.float64), (1100, torch.float32)):
+        H, b = (torch.as_tensor(x, dtype=dtype) for x in _spd(rng, D))
+        assert torch.equal(tsolve.solve_spd(H, b), tsolve.solve_spd_plain(H, b))
+    assert [f.launches for f in routes] == before
+
+
+def _planted_codebook(rng, K, V, W, batch=None):
+    """Descriptors and a codebook with repeated codewords and descriptors
+    sitting on them (ties in the minimum) and near copies of them."""
+    shape = (() if batch is None else (batch,))
+    vocab = _desc(rng, V * (batch or 1), W).reshape(shape + (V, W))
+    desc = _desc(rng, K * (batch or 1), W).reshape(shape + (K, W))
+    n = V // 4
+    vocab[..., V - n:, :] = vocab[..., :n, :]  # equal codewords
+    desc[..., :n, :] = vocab[..., :n, :]  # exact hits on them
+    desc[..., n:2 * n, 0] = vocab[..., :n, 0] ^ 1  # one bit off them
+    return desc, vocab
+
+
+@pytest.mark.parametrize("case", ["shared", "batched_desc", "per_batch"])
+def test_nearest_codeword_plain_matches_jax(case):
+    """The nearest codeword (the word assignment's kernel, plain version)
+    against ``jnp.argmin`` of the JAX reference distance matrix, ties to the
+    first index, with a shared codebook (2-D, and a batch of descriptors)
+    and a codebook per batch entry (the product vocabulary's halves)."""
+    rng = np.random.default_rng(len(case))
+    if case == "shared":
+        desc, vocab = _planted_codebook(rng, 300, 64, 8)
+        descs, vocabs = [desc], [vocab]
+    elif case == "batched_desc":
+        desc, vocab = _planted_codebook(rng, 90, 40, 8)
+        other = desc.copy()
+        other[20:] = _desc(rng, 70)  # the same planted rows, other free ones
+        desc = np.stack([desc, other])
+        descs, vocabs = list(desc), [vocab, vocab]
+    else:
+        desc, vocab = _planted_codebook(rng, 150, 256, 4, batch=2)
+        descs, vocabs = list(desc), list(vocab)
+    got = tham.nearest_codeword(torch.as_tensor(desc.view(np.int32)),
+                                torch.as_tensor(vocab.view(np.int32)))
+    assert got.dtype == torch.int64
+    got = got.reshape(len(descs), -1).numpy()
+    for k, (d, v) in enumerate(zip(descs, vocabs)):
+        want = np.asarray(jnp.argmin(jham.hamming_matrix_ref(jnp.asarray(d), jnp.asarray(v)), axis=1))
+        np.testing.assert_array_equal(got[k], want)
+        n = v.shape[0] // 4
+        assert (got[k][:n] == np.arange(n)).all()  # the first of two equal codewords
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers launch or raise: CPU tensors, wrong dtypes and
     non-contiguous input are refused before any build or launch."""
@@ -104,7 +159,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tsolve.spd_solve_chol(H.double(), b.double())
     with pytest.raises(ValueError, match="contiguous"):
         tsolve.spd_solve_chol(torch.eye(8)[::2, ::2], torch.ones(4))
+    with pytest.raises(ValueError, match="CUDA"):
+        tsolve.spd_solve_cluster(H, b)
+    with pytest.raises(TypeError):
+        tsolve.spd_solve_cluster(H.double(), b.double())
     a = torch.zeros((3, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tham.nearest_codeword_cuda(a, a)
+    with pytest.raises(TypeError):
+        tham.nearest_codeword_cuda(a.float(), a.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        tham.nearest_codeword_cuda(torch.zeros((3, 16), dtype=torch.int32)[:, ::2], a)
     with pytest.raises(ValueError, match="CUDA"):
         tham.hamming_matrix_cuda(a, a)
     with pytest.raises(TypeError):

@@ -36,6 +36,7 @@ from svin_tpu.loopclosure import globalmap as jgm
 from svin_tpu.loopclosure import posegraph as jpg
 from svin_tpu.loopclosure import retrieval as jret
 from svin_tpu.loopclosure import switching as jsw
+from svin_tpu.ops import hamming as jham
 from svin_tpu.pipeline.config import HealthConfig as JaxHealthConfig
 from svin_tpu.pipeline.config import VioConfig as JaxVioConfig
 from svin_tpu_torch.cameras import make_camera
@@ -238,6 +239,53 @@ def test_kmedoids_centroids_are_bit_identical(runs, n):
     tpv = tret.train_product_vocabulary(torch.as_tensor(pool), iters=3)
     np.testing.assert_array_equal(tpv.vocab1.numpy(), np.asarray(jpv.vocab1).view(np.int32))
     np.testing.assert_array_equal(tpv.vocab2.numpy(), np.asarray(jpv.vocab2).view(np.int32))
+
+
+def _tied(rng, n, v, w):
+    """n descriptors and v codewords of w words, a quarter of the codewords
+    repeated and descriptors on them, so the minimum distance ties."""
+    vocab, desc = _words(rng, v, w), _words(rng, n, w)
+    q = v // 4
+    vocab[v - q:] = vocab[:q]
+    desc[:q] = vocab[:q]
+    desc[q:2 * q, -1] = vocab[:q, -1] ^ (1 << 7)
+    return desc, vocab
+
+
+@pytest.mark.parametrize("width", [8, 4])
+def test_assign_words_and_kmedoids_match_jax_with_ties(width):
+    """The word assignment (``assign_words``: the nearest-codeword function),
+    one k-medoids step (``_kmedoids``, the refinement of both vocabulary
+    trainers) and, at width 4, the product vocabulary's ``product_words``,
+    bit for bit against the JAX package on descriptors that tie."""
+    rng = np.random.default_rng(width)
+    desc, vocab = _tied(rng, 400, 64, width)
+    jd, jv = jnp.asarray(desc), jnp.asarray(vocab)
+    td, tv = torch.as_tensor(desc.view(np.int32)), torch.as_tensor(vocab.view(np.int32))
+    want = np.asarray(jnp.argmin(jham.hamming_matrix_ref(jd, jv), axis=1))
+    got = tret.assign_words(td, tv).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[:16] == np.arange(16)).all()  # the first of two equal codewords
+    # one k-medoids step: the JAX trainers' step, written out (their
+    # train_* functions seed from a numpy draw the port repeats)
+    bits = jham.unpack_bits_pm1(jd).astype(jnp.int32)
+    sums = jax.ops.segment_sum(bits, jnp.asarray(want), num_segments=64)
+    counts = jax.ops.segment_sum(jnp.ones(400, jnp.int32), jnp.asarray(want), num_segments=64)
+    maj = (sums > 0).astype(jnp.uint32).reshape(64, width, 32)
+    packed = jnp.sum(maj * (jnp.uint32(1) << jnp.arange(32, dtype=jnp.uint32)), axis=-1,
+                     dtype=jnp.uint32)
+    step = np.asarray(jnp.where((counts > 0)[:, None], packed, jv))
+    np.testing.assert_array_equal(tret._kmedoids(td, tv, 1).numpy(), step.view(np.int32))
+    if width == 4:
+        pd, pv1 = _tied(rng, 300, 256, 4)
+        _, pv2 = _tied(rng, 300, 256, 4)
+        full = np.concatenate([pd, pd[::-1]], axis=1)  # both halves sit on ties
+        full[:, 4:][:64] = pv2[:64]
+        want_w = jret.product_words(jnp.asarray(full), jnp.asarray(pv1), jnp.asarray(pv2))
+        got_w = tret.product_words(torch.as_tensor(full.view(np.int32)),
+                                   torch.as_tensor(pv1.view(np.int32)),
+                                   torch.as_tensor(pv2.view(np.int32)))
+        np.testing.assert_array_equal(got_w.numpy(), np.asarray(want_w))
 
 
 def test_words_bow_and_idf_match_jax():
