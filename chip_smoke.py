@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch/CUDA port: build its CUDA kernels, hold each to
 its plain PyTorch version on the card, then drive the VIO backend's
-per-frame step, the engine (serial and pipelined), the loop closer and the
-offline app at the shipped shapes and check what comes out.
+per-frame step, the engine (serial and pipelined), the loop closer (to past
+2,048 keyframes), the offline app and global bundle adjustment at the
+shipped shapes and check what comes out.
 
     python3 chip_smoke.py
 
@@ -155,6 +156,38 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
      and through the nearest-codeword kernel once. The kernels' launches in
      the closer's ``add_keyframe`` are counted apart from the app's engine.
 
+7. The loop closer past 512 nodes.
+   - Solves on in-place graphs (``closer_past_512``: a circle lapped twice
+     with a VIO yaw random walk, loop edges back to the first lap) of 513
+     and 1,024 keyframes, ``_optimize_and_update_drift`` in 4-DoF (the
+     banded branch's system by ``optimize_4dof_pcg``, 30 GN x 96 CG) and
+     6-DoF (PCG, 10 GN x 96 CG), float32: the scalable
+     branch in ``pgo_log``, one solver run under the sync debug mode that
+     raises on a host synchronisation, the loop residuals under 0.01 m
+     (4-DoF; the 6-DoF loop edges, whitened by 20 before a Huber(0.1), only
+     halve them, as the JAX closer's), and the same solve by the port in
+     float64 on the CPU: its path within SCALABLE_PATH_TOL_M. ms per solve
+     (median of 3) with the solver's traced device ms and operations; at
+     1,024 nodes the dense ``optimize_4dof`` beside the scalable solve.
+   - The in-situ drive of ``tests/test_loopcloser_scale.py:216``: 2,120
+     image-free keyframes through ``add_keyframe`` (6 GN x 32 CG, 25
+     correspondences, 64 P3P hypotheses), the loops at the end: the tables
+     doubled past 2,048, a loop from the revisit, the database's device
+     query and inverted file used, the corrected path better than the
+     drifted one, the nearest codeword once per keyframe (counts from 0 just
+     before the drive, read just after); ``add_keyframe`` ms (median, p90).
+
+8. Global bundle adjustment: ``build_global_ba_problem`` at its defaults
+   (K = 64, L = 4,096, O = 16,384), float32, poses perturbed by 5 cm,
+   through ``ba_solve_local``, ``ba_solve_bucketed`` and ``ba_solve_pcg``:
+   the cost falls, the poses within 1 cm of the truth, the dense routes
+   launch the cluster kernel (D = 384) once per GN step (counts from 0 just
+   before each route, read just after) and agree with themselves on the
+   plain solve under deterministic algorithms; ms per GN step. Then
+   ``ba_solve_local`` at K = 128 and 170 (D = 768, 1020): ms per GN step and
+   the share of its solve, the cluster kernel timed beside the library
+   Cholesky on the step's own system.
+
 The second-to-last line of standard output is the kernels' JSON record; the
 last is ``{"ok": true, "device": {...}}``.
 """
@@ -189,9 +222,10 @@ from svin_tpu_torch.utils import Timing
 N_FRAMES = 5
 K = 400
 SOLVE_D = 120  # S·15 at the shipped window with fixed extrinsics
-# the cluster kernel's sizes: an S=22 window (15·22), then up to the
-# reference kernel's 1024
-LARGE_DS = (330, 384, 512, 768, 1024)
+# the cluster kernel's sizes: an S=22 window (15·22), global BA's 6K at K =
+# 64, 128 and 170 (384, 768, 1020: 1020 ends in a partial 32-wide panel),
+# then up to the reference kernel's 1024
+LARGE_DS = (330, 384, 512, 768, 1020, 1024)
 LARGE_S_KEYFRAMES = 19  # + the config's 3 IMU frames: S = 22 states, D = 330
 LARGE_S_FRAMES = 8
 CFG = WindowConfig(num_states=8, num_landmarks=512, num_obs=4096, max_iterations=10)
@@ -223,8 +257,8 @@ STAGES = ("2.0 frame_total", "2.1 detect_describe", "2.1.2 detect_fetch", "2.4 m
 PLAIN = dict(solve=solve.solve_spd_plain, matcher=hamming.match_descriptors_plain)
 # every kernel wrapper's launch count. The engine's main path (S=8, D=120)
 # runs B1's one-block kernel and the fused matcher; a window of S=22 states
-# (D=330) runs B1's cluster kernel; the loop closer runs the fused matcher
-# and the nearest-codeword kernel. The distance matrix is on no path (held
+# (D=330) and global BA (D=6K) run B1's cluster kernel; the loop closer runs
+# the fused matcher and the nearest-codeword kernel. The distance matrix is on no path (held
 # to its plain version and timed in the kernel phases). The solve's library
 # route (float64, D > 1024) is counted beside the kernels.
 KERNELS = {"spd_solve_chol": solve.spd_solve_chol, "spd_solve_cluster": solve.spd_solve_cluster,
@@ -416,7 +450,7 @@ def check_solve(H, rhs, what: str, counter: str) -> None:
 
 def large_solve_phase(rng, dev) -> dict:
     """B1 past one block's shared memory: the cluster kernel through
-    ``solve_spd`` at D = 330 (the S=22 window), 384, 512, 768, 1024, a batch
+    ``solve_spd`` at D = 330 (the S=22 window), 384, 512, 768, 1020, 1024, a batch
     with a non-SPD system, the float64 and D > 1024 library route; timed at
     each D in turns with ``cholesky_ex`` + ``cholesky_solve``."""
     for D in LARGE_DS:
@@ -1834,6 +1868,415 @@ def loop_phase(dev) -> dict:
     return launches, closer
 
 
+# -------------------------------------------------- the closer past 512 nodes
+SCALABLE_NODES = (513, 1024)
+# tests/test_loopcloser_scale.py's in-situ drive: keyframes, first revisit, radius (m)
+DRIVE = (2120, 2100, 80.0)
+# the card's float32 scalable solve against the port's float64 one on the
+# CPU: the chain's slow yaw ramp is a quasi-null mode of an anchored pose
+# graph, along which float32 and float64 runs part by up to ~1 cm (printed
+# below); the loop residuals and the cost are what agree
+SCALABLE_PATH_TOL_M = 0.02
+LOOP_RESIDUAL_M = 0.01  # the JAX tests' bound on loop residuals (tests/test_pcg.py:240)
+
+
+def closer_past_512(mode, n, dev):
+    """A port closer on ``dev`` (float32 on the card, float64 on the CPU)
+    holding ``n`` keyframes in place, as a long session leaves them
+    (``tests/test_torch_loopclosure.py``'s graph): a circle of radius 20 m
+    lapped twice whose VIO poses carry a yaw random walk, sequential edges
+    from the VIO poses, loop edges at the true relative poses from the
+    second lap back to the first every 32 keyframes."""
+    from svin_tpu_torch.kinematics import npq
+    from svin_tpu_torch.loopclosure import loop_closure as tlc
+    from svin_tpu_torch.loopclosure.posegraph import ypr_to_matrix_np as ypr
+
+    cfg = load_config(ENGINE_CONFIG)
+    cfg.loop_closure.pgo_mode = mode
+    closer = tlc.LoopCloser(_drive_camera(dev), cfg, capacity=1024, device=dev)
+    rng = np.random.default_rng(7)
+    th = np.linspace(0, 4 * np.pi, n)
+    p_gt = np.stack([20.0 * np.cos(th), 20.0 * np.sin(th), 0.1 * np.sin(3 * th)], 1)
+    yaw_gt = th + np.pi / 2
+    yaw_vio = yaw_gt + np.cumsum(rng.normal(0, 2e-3, n))
+    p_vio = np.cumsum([p_gt[0]] + [ypr(yaw_vio[k - 1], 0, 0) @ ypr(yaw_gt[k - 1], 0, 0).T
+                                   @ (p_gt[k] - p_gt[k - 1]) for k in range(1, n)], axis=0)
+    z8 = np.zeros((8, 8), np.int32)
+    for k in range(n):
+        T = Transformation(r=p_vio[k], q=npq.from_rotation_matrix(ypr(yaw_vio[k], 0, 0)))
+        closer.keyframes.append(tlc.LoopKeyframe(
+            index=k, timestamp=float(k), T_WC_vio=T, points_W=np.zeros((0, 3)),
+            point_uv=np.zeros((0, 2)), window_desc=z8, window_valid=np.zeros(8, bool),
+            extra_uv=np.zeros((8, 2), np.float32), extra_desc=z8, extra_valid=np.zeros(8, bool)))
+        closer.nodes.p[k], closer.nodes.yaw[k], closer.nodes.valid[k] = p_vio[k], yaw_vio[k], True
+        for back in range(1, (4 if mode == "6dof" else 2) + 1):
+            if k - back >= 0:
+                closer._add_sequential_edge(k - back, k)
+    for k in range(n // 2 + 8, n, 32):
+        m = k - n // 2
+        rel_t = ypr(yaw_gt[m], 0, 0).T @ (p_gt[k] - p_gt[m])
+        rel_yaw = float(yaw_gt[k] - yaw_gt[m])
+        closer._add_loop_edge(tlc.LoopInfo(k, m, 40, rel_t, rel_yaw, rel_t_full=rel_t,
+                                           rel_q_full=npq.from_rotation_matrix(ypr(rel_yaw, 0, 0))))
+        closer.earliest_loop_index = min(closer.earliest_loop_index, m)
+    return closer
+
+
+def _drive_camera(dev):
+    """tests/test_loopcloser_scale.py's camera (200x150, f = 160 px)."""
+    from svin_tpu_torch.cameras import make_camera
+
+    return make_camera(200, 150, 160.0, 160.0, 100.0, 75.0, model="none", device=dev)
+
+
+def loop_residuals(closer) -> np.ndarray:
+    """Translation residual (m) of every valid loop edge of a closer's graph."""
+    from svin_tpu_torch.loopclosure.posegraph import ypr_to_matrix_np as ypr
+
+    e, nd = closer.edges, closer.nodes
+    kk = np.nonzero(e.valid[: closer.n_edges] & e.is_loop[: closer.n_edges])[0]
+    return np.array([np.linalg.norm(ypr(nd.yaw[i], nd.pitch[i], nd.roll[i]).T @ (nd.p[j] - nd.p[i])
+                                    - e.t_ij[k]) for k, i, j in zip(kk, e.i[kk], e.j[kk])])
+
+
+class SolverProbe:
+    """Wraps the closer's scalable solver (``optimize_4dof_pcg`` or
+    ``optimize_6dof_pcg``, looked up by the closer at call time): keeps the
+    last call's arguments, and runs a call under the CUDA sync debug mode
+    that raises on a host synchronisation when ``strict`` is set."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.fn = module, name, getattr(module, name)
+        self.args, self.strict, self.calls = None, False, 0
+
+    def __call__(self, *args, **kw):
+        self.args, self.calls = (args, kw), self.calls + 1
+        if not self.strict:
+            return self.fn(*args, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = self.fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def timed_ms(fn, n=3) -> list:
+    """Host ms per call of ``fn`` (synchronized), ``n`` calls."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def scalable_solves(dev) -> None:
+    """The closer's solve past 512 nodes on in-place graphs of 513 and
+    1,024 keyframes, 4-DoF (PCG, 30 GN x 96 CG) and 6-DoF (PCG, 10 GN x
+    96 CG), float32: the scalable branch taken, one solver run under the sync
+    debug mode that raises, the loop residuals down (4-DoF under
+    LOOP_RESIDUAL_M; 6-DoF to under half: its loop edges are whitened by 20
+    before a Huber(0.1), as the JAX closer's), and the port's float64 closer
+    on the CPU on the same graph: its loop residuals and its path within
+    SCALABLE_PATH_TOL_M. ms per solve (median of 3), and at 1,024 keyframes
+    the solver's traced device ms and operations and the dense 4-DoF solve
+    beside the scalable one."""
+    from svin_tpu_torch.loopclosure import posegraph
+    from svin_tpu_torch.parallel import pcg
+
+    for mode in ("4dof", "6dof"):
+        for n in SCALABLE_NODES:
+            closer = closer_past_512(mode, n, dev)
+            snap = ([a.copy() for a in closer.nodes], closer.edges.valid.copy())
+            res0 = loop_residuals(closer)
+
+            def solve():
+                for a, b in zip(closer.nodes, snap[0]):
+                    a[...] = b
+                closer.edges.valid[...] = snap[1]
+                closer._optimize_and_update_drift()
+
+            name = "optimize_4dof_pcg" if mode == "4dof" else "optimize_6dof_pcg"
+            with SolverProbe(pcg, name) as probe:
+                probe.strict = True
+                solve()  # builds nothing new: the first solve, strict
+                probe.strict = False
+                ms = timed_ms(solve)
+            if closer.pgo_log[-1]["branch"] != "scalable" or probe.calls < 4:
+                raise AssertionError(f"closer past 512 [{mode}, {n}]: branch "
+                                     f"{closer.pgo_log[-1]['branch']}, solver calls {probe.calls}")
+            res = loop_residuals(closer)
+            if not np.isfinite(closer.optimized_path()).all() or not (
+                    res.max() < LOOP_RESIDUAL_M if mode == "4dof" else res.max() < 0.5 * res0.max()):
+                raise AssertionError(f"closer past 512 [{mode}, {n}]: loop residuals {res0.max():.4f}"
+                                     f" -> {res.max():.4f} m")
+            ref = closer_past_512(mode, n, "cpu")
+            # one CPU thread: the solve's small ops on a host shared with
+            # other jobs take 3-7x longer across 8 threads than on one
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                t0 = time.perf_counter()
+                ref._optimize_and_update_drift()
+                t_ref = time.perf_counter() - t0
+            finally:
+                torch.set_num_threads(threads)
+            err = float(np.abs(closer.optimized_path() - ref.optimized_path()).max())
+            res_ref = loop_residuals(ref)
+            if not err < SCALABLE_PATH_TOL_M:
+                raise AssertionError(f"closer past 512 [{mode}, {n}]: card path {err:.4f} m off the "
+                                     f"float64 CPU solve's")
+            args, kw = probe.args
+            # both sizes solve a 1,024-node prefix: one trace (~115k device
+            # operations for the 4-DoF solve) at the larger
+            tr = (traced_ms(lambda: probe.fn(*args, **kw), n=1, tries=1, agree=False)
+                  if n == SCALABLE_NODES[-1] else None)
+            log(f"closer past 512 [{mode}, {n} keyframes, {closer._prefix()[0]}-node prefix, "
+                f"{closer.n_edges} edges]: branch scalable, one solver run without a host sync; "
+                f"loop residuals {res0.max():.4f} -> {res.max():.6f} m (CPU float64 "
+                f"{res_ref.max():.6f} m, {t_ref:.1f} s); path within {err * 1e3:.3f} mm of the "
+                f"CPU float64 solve's; ms per solve median {statistics.median(ms):.2f} "
+                f"({[round(x, 2) for x in ms]}); the solver alone: device time per call "
+                f"{traced_text(*tr) if tr else 'traced at the larger graph'}; pgo_log "
+                f"{closer.pgo_log[-1]}")
+            if mode == "4dof" and n == SCALABLE_NODES[-1]:
+                Np, Ep = closer._prefix()
+                f = lambda a: closer._dev(a, closer.dtype if a.dtype.kind == "f" else None)  # noqa
+                nd = posegraph.PoseGraphNodes(*(f(a[:Np]) for a in snap[0]))
+                ed = posegraph.PoseGraphEdges(*(f(a[:Ep]) for a in closer.edges))
+                fix = max(closer.earliest_loop_index + 1, 1)
+                dense = lambda: posegraph.optimize_4dof(nd, ed, fix, iters=30)  # noqa: E731
+                dense()
+                dms = timed_ms(dense)
+                trd = traced_ms(dense, n=1, tries=1, agree=False)
+                scalable = lambda: pcg.optimize_4dof_pcg(  # noqa: E731
+                    nd, ed, fix, iters=30, cg_iters=96, coarse_group=32)
+                sms = timed_ms(scalable)
+                log(f"  4-DoF at {Np} nodes, 30 GN iterations, the solver alone: dense "
+                    f"optimize_4dof (({4 * Np})^2 Cholesky) median {statistics.median(dms):.2f} ms, "
+                    f"device {traced_text(*trd)}; scalable PCG (96 CG per GN) median "
+                    f"{statistics.median(sms):.2f} ms")
+
+
+def scalable_drive(dev) -> dict:
+    """tests/test_loopcloser_scale.py:216 on the card: DRIVE[0] image-free
+    keyframes (``problems.closer_drive``) through ``add_keyframe`` at the
+    test's settings (6 GN x 32 CG, 25 correspondences, 64 P3P hypotheses),
+    loops at the end: capacity doubled past 2,048, a loop verified from the
+    revisit, the database's device query and inverted file used, the
+    corrected path better than half the drifted one's median error, the
+    nearest codeword once per keyframe (launch counts from 0 just before the
+    drive, read just after). add_keyframe ms (median, p90)."""
+    from svin_tpu_torch.loopclosure import LoopCloser
+
+    n, start, radius = DRIVE
+    cfg = load_config(ENGINE_CONFIG)
+    cfg.health.enable = False
+    cfg.loop_closure.min_correspondences = 25
+    cfg.loop_closure.pnp_ransac_iterations = 64
+    closer = LoopCloser(_drive_camera(dev), cfg, device=dev)
+    closer.pgo_gn_iters, closer.pgo_cg_iters = 6, 32
+    exports, pos_true, pos_vio = problems.closer_drive(closer.camera, n, start, radius)
+    Timing.reset()
+    reset_counts()
+    ms, n_loops = [], 0
+    for e in exports:
+        t0 = time.perf_counter()
+        n_loops += closer.add_keyframe(e) is not None
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = read_counts()
+    path = closer.optimized_path()
+    err_c = np.linalg.norm(path[start:] - pos_true[start:], axis=1)
+    err_v = np.linalg.norm(pos_vio[start:] - pos_true[start:], axis=1)
+    solves = [e for e in closer.pgo_log if e["branch"] == "scalable"]
+    log(f"in-situ drive [{n} keyframes, loops from {start}]: {n_loops} loops (first "
+        f"{closer.loops[0].query_index if closer.loops else None} -> "
+        f"{closer.loops[0].match_index if closer.loops else None}), capacity {closer.capacity}, "
+        f"database {closer.db.count} entries ({len(closer.db._inv)} inverted-file words), "
+        f"{len(solves)} scalable solves (wall s {[e['wall_s'] for e in solves]}); median error "
+        f"corrected {np.median(err_c):.3f} m vs drifted {np.median(err_v):.3f} m; add_keyframe ms "
+        f"median {statistics.median(ms):.2f}, p90 {float(np.percentile(ms, 90)):.2f}, max "
+        f"{max(ms):.2f}; stats {closer.stats}; launches {launches}")
+    for k in ("lc.2 bow", "lc.3 query", "lc.4 verify", "lc.5 pose_graph"):
+        st = Timing.get(k)
+        if st is not None:
+            v = 1e3 * np.asarray(list(st.window))
+            log(f"  {k}: {st.count} calls, median {float(np.median(v)):.2f} ms (last "
+                f"{len(v)}), p90 {float(np.percentile(v, 90)):.2f} ms")
+    if not (len(closer.keyframes) == n and closer.capacity > 2048 and n_loops >= 1
+            and closer.loops[0].query_index >= start and solves
+            and closer.db.count >= closer.db.DEVICE_QUERY_AT and len(closer.db._inv) > 0
+            and np.median(err_c) < 0.5 * np.median(err_v)):
+        raise AssertionError("in-situ drive: a check of tests/test_loopcloser_scale.py:216 failed")
+    if not (launches["hamming_nearest"] == n and launches["hamming_matrix"] == 0):
+        raise AssertionError(f"in-situ drive: nearest codeword not once per keyframe: {launches}")
+    return launches
+
+
+def scalable_phase(dev) -> dict:
+    scalable_solves(dev)
+    return scalable_drive(dev)
+
+
+# ---------------------------------------------------------------- global BA
+BA_K = (64, 128, 170)  # D = 6K = 384 (the problem's default K), 768, 1020: the cluster kernel
+BA_ITERS = 10
+BA_PERTURB_M = 0.05  # pose perturbation (the JAX BA tests'), seeded, the two gauge poses kept
+BA_POSE_TOL_M = 0.01  # the JAX BA tests' bound against the truth (tests/test_dist_ba.py:66)
+# a route with the kernels against the same route with the plain solve on the
+# card, under deterministic algorithms: float32 solves that round differently,
+# carried through BA_ITERS GN steps (float32 and float64 runs of the same
+# route on the CPU agree to ~1e-6 m at K = 12 and 64)
+BA_KERNEL_TOL_M = 1e-4
+# the cluster kernel on every reduced system a run gave it, against the plain
+# solve on the same system: check_solve's limits (relative residual, here in
+# float64, and relative distance to the plain solution). Near the optimum b
+# shrinks by 1e5 while H keeps its ~1e7 condition, and the float32 plain
+# solve's own residual reaches ~5e-5 there (CPU, K = 64-170), so the residual
+# limit is 1e-4 or 4x the plain solve's residual on that system, the larger
+BA_STEP_RESIDUAL, BA_STEP_DISTANCE = 1e-4, 1e-3
+
+
+def ba_problem(K, dev):
+    """``problems.build_global_ba_problem`` at L = 4096, O = 16384 and K
+    poses, float32, its non-gauge poses perturbed by BA_PERTURB_M (seeded):
+    (truth, start, rig)."""
+    prob, rig = problems.build_global_ba_problem(np.random.default_rng(3), K=K, L=4096, O=16384,
+                                                 device=dev)
+    dp = torch.as_tensor(np.random.default_rng(4).normal(0, BA_PERTURB_M, (K, 3)),
+                         dtype=torch.float32, device=dev)
+    return prob, prob._replace(pose_r=prob.pose_r + dp * (~prob.pose_fixed)[:, None]), rig
+
+
+def check_step_systems(systems, what: str) -> str:
+    """``spd_solve_cluster`` against ``solve_spd_plain`` on each (H, b) a GN
+    run solved (BA_STEP_RESIDUAL, BA_STEP_DISTANCE): the worst residual and
+    distance, as text."""
+    worst_r = worst_d = 0.0
+    for H, b in systems:
+        x, ref = solve.spd_solve_cluster(H, b), solve.solve_spd_plain(H, b)
+        Hd, bd = H.double(), b.double()
+        res = lambda v: float(torch.linalg.norm(Hd @ v.double() - bd) / torch.linalg.norm(bd))  # noqa
+        r, r_plain = res(x), res(ref)
+        d = float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+        if not (r <= max(BA_STEP_RESIDUAL, 4 * r_plain) and d <= BA_STEP_DISTANCE):
+            raise AssertionError(f"{what}: cluster kernel on a GN step's system: relative residual "
+                                 f"{r:.3e} (plain {r_plain:.3e}), distance to plain {d:.3e}")
+        worst_r, worst_d = max(worst_r, r), max(worst_d, d)
+    return (f"cluster kernel on the run's {len(systems)} step systems: relative residual <= "
+            f"{worst_r:.3e}, distance to plain <= {worst_d:.3e}")
+
+
+def keeping_solve(systems: list):
+    """``solve.solve_spd`` that keeps each system it is given."""
+    def keep(H, b):
+        systems.append((H, b))
+        return solve.solve_spd(H, b)
+    return keep
+
+
+def global_ba_phase(dev) -> dict:
+    """Global BA at the problem's defaults (K = 64, L = 4096, O = 16384),
+    float32, through ``ba_solve_local``, ``ba_solve_bucketed`` and
+    ``ba_solve_pcg`` (pose-major index, 48 CG per GN), BA_ITERS GN steps
+    from the perturbed start: the cost falls, the poses within BA_POSE_TOL_M
+    of the truth, the dense routes launch the cluster kernel once per GN
+    step (counts from 0 just before, read just after), the kernel within
+    check_step_systems's limits of the plain solve on every system the run
+    gave it, each dense route within BA_KERNEL_TOL_M of itself with the
+    plain solve on the card and PCG within BA_POSE_TOL_M of the dense
+    optimum (deterministic algorithms). ms per GN step (the run's host time
+    over BA_ITERS steps, median of 3). Then ``ba_solve_local`` at K = 128
+    and 170 (D = 768, 1020), checked the same way: ms per GN step and the
+    solve's share of it (the last step's reduced system solved alone by
+    the cluster kernel and by the library Cholesky, device ms)."""
+    from svin_tpu_torch import parallel as tpar
+
+    truth, start, rig = ba_problem(BA_K[0], dev)
+    bstart = tpar.bucket_problem(start)
+    perm = tpar.pose_major_index(bstart.obs_pose, bstart.obs_valid, BA_K[0])
+    _, cost0 = tpar.ba_solve_bucketed(bstart, rig, iters=0, solve=solve.solve_spd_plain)
+    routes = {
+        "local": lambda **kw: tpar.ba_solve_local(start, rig, iters=BA_ITERS, **kw),
+        "bucketed": lambda **kw: tpar.ba_solve_bucketed(bstart, rig, iters=BA_ITERS, **kw),
+        "pcg": lambda: tpar.ba_solve_pcg(bstart, rig, iters=BA_ITERS, cg_iters=48, pose_perm=perm),
+    }
+    launches = {k: 0 for k in KERNELS}
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, run in routes.items():
+            systems = []
+            reset_counts()
+            res, cost = run() if name == "pcg" else run(solve=keeping_solve(systems))
+            torch.cuda.synchronize()
+            got = read_counts()
+            for k in KERNELS:
+                launches[k] += got[k]
+            err = float((res.pose_r - truth.pose_r).abs().max())
+            line = (f"global BA [{name}, K={BA_K[0]}, D={6 * BA_K[0]}]: cost {float(cost0):.4f} -> "
+                    f"{float(cost):.3e}, poses within {err * 1e3:.4f} mm of the truth; launches "
+                    f"{ {k: v for k, v in got.items() if v} }")
+            if not (float(cost) < float(cost0) and err < BA_POSE_TOL_M):
+                raise AssertionError(line)
+            if name == "pcg":
+                dense = (out["bucketed"].pose_r - res.pose_r).abs().max()
+                line += f"; within {float(dense) * 1e3:.4f} mm of the bucketed optimum"
+                if not float(dense) < BA_POSE_TOL_M or any(got.values()):
+                    raise AssertionError(line)
+            else:
+                plain, _ = run(solve=solve.solve_spd_plain)
+                d = float((plain.pose_r - res.pose_r).abs().max())
+                line += f"; plain solve on the card within {d * 1e3:.5f} mm"
+                if got["spd_solve_cluster"] != BA_ITERS or not d < BA_KERNEL_TOL_M:
+                    raise AssertionError(line)
+                line += "; " + check_step_systems(systems, f"global BA [{name}, K={BA_K[0]}]")
+            out[name] = res
+            log(line)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name, run in routes.items():
+        ms = timed_ms(run)
+        log(f"  [{name}] ms per GN step median {statistics.median(ms) / BA_ITERS:.3f} "
+            f"({[round(x / BA_ITERS, 3) for x in ms]})")
+    for K in BA_K[1:]:
+        truth, start, rig = ba_problem(K, dev)
+        seen = []
+        reset_counts()
+        res, cost = tpar.ba_solve_local(start, rig, iters=BA_ITERS, solve=keeping_solve(seen))
+        torch.cuda.synchronize()
+        got = read_counts()
+        for k in KERNELS:
+            launches[k] += got[k]
+        err = float((res.pose_r - truth.pose_r).abs().max())
+        if not (got["spd_solve_cluster"] == BA_ITERS and err < BA_POSE_TOL_M):
+            raise AssertionError(f"global BA [local, K={K}]: launches {got}, poses {err} m off")
+        checked = check_step_systems(seen, f"global BA [local, K={K}]")
+        ms = timed_ms(lambda: tpar.ba_solve_local(start, rig, iters=BA_ITERS))
+        step = statistics.median(ms) / BA_ITERS
+        H, b = seen[-1]
+        t = in_turns({"cluster": lambda: solve.spd_solve_cluster(H, b),
+                      "library": lambda: cholesky_library(H, b)}, n=20)
+        log(f"global BA [local, K={K}, D={6 * K}]: poses within {err * 1e3:.4f} mm of the truth; "
+            f"ms per GN step median {step:.3f}; the step's solve alone: cluster kernel "
+            f"{t['cluster'][0]:.5f} ms ({100 * t['cluster'][0] / step:.2f}% of the step), library "
+            f"Cholesky {t['library'][0]:.5f} ms; launches { {k: v for k, v in got.items() if v} }; "
+            f"{checked}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
@@ -1857,18 +2300,32 @@ def main() -> int:
                 if "Used" in line or "spill" in line:
                     log("  ptxas: " + line.strip().removeprefix("ptxas info    : "))
 
-    timings = kernel_phase(dev)
-    loop_timings = loop_kernel_phase(dev)
-    launches = slice_phase(dev)
-    engine_launches, inputs = engine_phase(dev)
-    large_launches = large_window_phase(dev, inputs[0], inputs[1])
-    pipelined_launches = pipelined_phase(dev, *inputs)
-    loop_launches, closer_launches = loop_phase(dev)
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    timings = phase("kernels", kernel_phase, dev)
+    loop_timings = phase("loop kernels", loop_kernel_phase, dev)
+    launches = phase("backend step", slice_phase, dev)
+    engine_launches, inputs = phase("engine", engine_phase, dev)
+    large_launches = phase("engine S=22", large_window_phase, dev, inputs[0], inputs[1])
+    pipelined_launches = phase("pipelined", pipelined_phase, dev, *inputs)
+    loop_launches, closer_launches = phase("loop closure", loop_phase, dev)
+    drive_launches = phase("closer past 512", scalable_phase, dev)
+    ba_launches = phase("global BA", global_ba_phase, dev)
+    log(f"wall seconds per phase: {phase_s}")
     launches = {k: launches[k] + engine_launches[k] + large_launches[k] + pipelined_launches[k]
-                + loop_launches[k] for k in KERNELS}
-    log(f"launches summed over the backend-step, engine (S=8 and S=22), pipelined and "
-        f"loop-closure paths: {launches} (S=22 engine: {large_launches}; loop-closure phase, the "
-        f"apps' engine included: {loop_launches}; the loop closer alone: {closer_launches})")
+                + loop_launches[k] + drive_launches[k] + ba_launches[k] for k in KERNELS}
+    closer_launches = {k: closer_launches[k] + drive_launches[k] for k in KERNELS}
+    log(f"launches summed over the backend-step, engine (S=8 and S=22), pipelined, "
+        f"loop-closure, closer past 512 and global BA paths: {launches} (S=22 engine: "
+        f"{large_launches}; loop-closure phase, the apps' engine included: {loop_launches}; the "
+        f"loop closer alone, the {DRIVE[0]}-keyframe drive included: {closer_launches}; global "
+        f"BA: {ba_launches})")
 
     ret, ver = loop_timings["retrieval"], loop_timings["verification"]
     near = loop_timings["nearest"]
@@ -1879,6 +2336,7 @@ def main() -> int:
         {"name": "spd_solve_cluster", "route": "cuda",
          "source": "svin_tpu_torch/csrc/spd_solve_cluster.cu",
          "replaces": "svin_tpu/ops/solve.py:59", "launches": launches["spd_solve_cluster"],
+         "ba_launches": ba_launches["spd_solve_cluster"],
          "shape": f"D={LARGE_DS[0]}", **timings["spd_solve_cluster"]},
         {"name": "hamming_match", "route": "cuda", "source": "svin_tpu_torch/csrc/hamming_match.cu",
          "replaces": "svin_tpu/ops/hamming.py:44", "launches": launches["hamming_match"],

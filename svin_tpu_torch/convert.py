@@ -15,7 +15,9 @@ fields are numpy and Python values → the port's), ``renderer_from_scene``
 ``VioEngine``). For loop closure: ``vocabulary_from_numpy`` and
 ``product_vocabulary_from_numpy`` (codebooks as uint32 words, idf weights),
 and ``posegraph_from_numpy`` (the pose-graph tables ``PoseGraphNodes`` /
-``PoseGraphEdges`` / ``PoseGraph6Nodes`` / ``PoseGraph6Edges``). Callers hand over host values only: extract
+``PoseGraphEdges`` / ``PoseGraph6Nodes`` / ``PoseGraph6Edges``). For global
+bundle adjustment: ``parallel_from_numpy`` (``GlobalMapProblem``,
+``BucketedProblem``). Callers hand over host values only: extract
 them with the JAX package's own tools first.
 """
 from __future__ import annotations
@@ -160,6 +162,16 @@ def posegraph_from_numpy(tree, device=None, dtype=torch.float64):
     cls = getattr(posegraph, type(tree).__name__)
     return cls(**{f: None if getattr(tree, f, None) is None
                   else array_to_tensor(getattr(tree, f), device, dtype) for f in cls._fields})
+
+
+def parallel_from_numpy(tree, device=None, dtype=torch.float64):
+    """The JAX package's global-BA problems (``GlobalMapProblem``,
+    ``BucketedProblem``; numpy leaves) → the port's, on ``device`` with
+    float leaves in ``dtype``."""
+    from . import parallel
+
+    cls = getattr(parallel, type(tree).__name__)
+    return cls(**{f: array_to_tensor(getattr(tree, f), device, dtype) for f in cls._fields})
 
 
 def vocabulary_from_numpy(vocab, weights=None, device=None):

@@ -1,8 +1,8 @@
 """Loop closure: BoW place recognition (``retrieval``), seed-free P3P
 verification and the 4/6-DoF pose graph (``posegraph``) behind
 ``LoopCloser``, plus the health gate and switching estimator, the global
-map and the frustum export (host numpy). The scalable pose-graph solvers
-past 512 nodes (the JAX package's ``parallel/``) are not ported."""
+map and the frustum export (host numpy). Past 512 nodes ``LoopCloser``
+solves with the scalable pose-graph solvers of ``svin_tpu_torch.parallel``."""
 from .frustums import frustum_lines, save_frustums_ply
 from .globalmap import GlobalMap
 from .loop_closure import LoopCloser, LoopInfo, LoopKeyframe

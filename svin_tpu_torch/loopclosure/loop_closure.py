@@ -5,8 +5,9 @@ Counterpart of the JAX package's ``loopclosure/loop_closure.py``. The
 keyframe payload is the dict ``VioEngine`` exports; the device work is the
 keyframe's descriptors (window keypoints re-described, fresh corners
 detected and described), the BoW words (the nearest-codeword kernel),
-verification (the fused matcher, then seed-free P3P RANSAC) and the dense
-pose-graph solve; the bookkeeping is host numpy. Each stage fetches once.
+verification (the fused matcher, then seed-free P3P RANSAC) and the
+pose-graph solve (dense to 512 nodes, the scalable solvers of ``parallel/``
+past it); the bookkeeping is host numpy. Each stage fetches once.
 
 Differences of form from the JAX package:
 
@@ -17,9 +18,12 @@ Differences of form from the JAX package:
   the parity tests inject the JAX draws.
 - The database is added to with the BoW vector the query already computed
   (the JAX package quantizes the keyframe twice, with the same result).
-- Past 512 nodes the JAX package switches to the banded 4-DoF solver and
-  the 6-DoF PCG of ``parallel/``, which are not ported: there the port
-  raises ``NotImplementedError``.
+- Past 512 nodes the pose graph is solved by the scalable solvers of
+  ``parallel/``, as in the JAX package, with ``pgo_cg_iters`` CG iterations
+  per GN step: in 4-DoF the system of the JAX package's banded solver by
+  ``optimize_4dof_pcg`` on the edge tables as they are (the banded layout
+  is the TPU's form; ``parallel/pg_band.py``), in 6-DoF
+  ``optimize_6dof_pcg``; below it by the dense solves.
 - Host timers per stage (``utils.Timing``): ``lc.1 describe_detect``,
   ``lc.2 bow``, ``lc.3 query``, ``lc.4 verify`` (per candidate inside it:
   ``lc.4.1 match``, ``lc.4.2 p3p``), ``lc.5 pose_graph``; each stage ends
@@ -84,8 +88,8 @@ DESC_DIST_LOOP = 80  # Hamming acceptance for loop matching
 WINDOW_CAP = 512  # fixed window-keypoint capacity (one shape per device call)
 COVIS_WEIGHT_TH = 20  # shared-landmark covisibility edge threshold
 SOLVE_BATCH_KF = 8  # past 512 nodes, full solves batch every N keyframes
-DENSE_MAX_NODES = 512  # the dense solves' limit; past it the JAX package
-# runs the scalable solvers of parallel/, not ported
+DENSE_MAX_NODES = 512  # the dense solves' limit; past it the scalable solvers
+# of parallel/ (a loop forces fast relocalization there, and solves batch)
 
 
 @dataclass
@@ -207,6 +211,7 @@ class LoopCloser:
         # optional DebugOutputDirs: every verification stage writes its image
         self.debug = None
         self.pgo_gn_iters = 30  # pose-graph GN iterations per solve
+        self.pgo_cg_iters = 96  # CG iterations per GN step past DENSE_MAX_NODES
         self.stats = {
             "queries": 0, "candidates": 0, "floor_reject": 0,
             "desc_reject": 0, "pnp_reject": 0, "ratio_reject": 0,
@@ -716,9 +721,14 @@ class LoopCloser:
 
     def _prefix(self) -> Tuple[int, int]:
         """(Np, Ep): the occupied node and edge prefix, padded to powers of
-        two (at least 64 and 128) within the tables."""
+        two (at least 64 and 128) within the tables. Past DENSE_MAX_NODES
+        the edges are the ones in use: the scalable solvers' work is per
+        edge, and the padding (zero-weight edges) only fixes the JAX
+        package's shapes."""
         n_used = max(len(self.keyframes), 2)
         Np = min(max(64, 1 << (n_used - 1).bit_length()), self.nodes.p.shape[0])
+        if Np > DENSE_MAX_NODES:
+            return Np, self.n_edges
         Ep = min(max(128, 1 << (max(self.n_edges, 1) - 1).bit_length()), self.edges.i.shape[0])
         return Np, Ep
 
@@ -727,17 +737,21 @@ class LoopCloser:
             self._optimize_6dof(fix_before)
             return
         Np, Ep = self._prefix()
-        if Np > DENSE_MAX_NODES:
-            raise NotImplementedError(
-                f"LoopCloser: a 4-DoF pose graph of {Np} nodes needs the banded solver "
-                f"(svin_tpu/parallel/pg_band.py, optimize_4dof_banded), which is not ported; "
-                f"the dense solve stops at {DENSE_MAX_NODES} nodes")
         nodes_s = PoseGraphNodes(*(self._dev(a[:Np], self.dtype if a.dtype.kind == "f" else None)
                                    for a in self.nodes))
         edges_s = PoseGraphEdges(*(self._dev(a[:Ep], self.dtype if a.dtype.kind == "f" else None)
                                    for a in self.edges))
-        out = convert.to_numpy_tree(
-            optimize_4dof(nodes_s, edges_s, fix_before, iters=self.pgo_gn_iters))
+        if Np > DENSE_MAX_NODES:
+            # the JAX package's banded branch (coarse groups of 32 nodes):
+            # on the GPU its banded layout reduces to the PCG over the same
+            # edges (parallel/pg_band.py), so the edge table goes in as it is
+            from ..parallel.pcg import optimize_4dof_pcg  # lazy: parallel/ imports this package
+
+            out = optimize_4dof_pcg(nodes_s, edges_s, fix_before, iters=self.pgo_gn_iters,
+                                    cg_iters=self.pgo_cg_iters, coarse_group=32)
+        else:
+            out = optimize_4dof(nodes_s, edges_s, fix_before, iters=self.pgo_gn_iters)
+        out = convert.to_numpy_tree(out)
         self.nodes.p[:Np] = out.p
         self.nodes.yaw[:Np] = out.yaw
 
@@ -779,11 +793,6 @@ class LoopCloser:
         100,57.3) sequential, diag(...,100) + Huber loop); the nodes are
         written back into the shared yaw/pitch/roll table."""
         Np, Ep = self._prefix()
-        if Np > DENSE_MAX_NODES:
-            raise NotImplementedError(
-                f"LoopCloser: a 6-DoF pose graph of {Np} nodes needs the matrix-free PCG "
-                f"(svin_tpu/parallel/pcg.py, optimize_6dof_pcg), which is not ported; the "
-                f"dense solve stops at {DENSE_MAX_NODES} nodes")
         f = lambda a: self._dev(a, self.dtype)  # noqa: E731
         q = quat.from_rotation_matrix(ypr_to_matrix(
             f(self.nodes.yaw[:Np]), f(self.nodes.pitch[:Np]), f(self.nodes.roll[:Np])))
@@ -805,7 +814,15 @@ class LoopCloser:
             q_ij=f(q_full), sqrt_info=f(sqrt_info), valid=self._dev(self.edges.valid[:E]),
             is_loop=self._dev(il),
         )
-        out = optimize_6dof(nodes6, edges6, fix_before, iters=max(10, self.pgo_gn_iters // 3))
+        if Np > DENSE_MAX_NODES:
+            # the matrix-free SE(3) PCG (block-Jacobi 6x6 + the coarse level)
+            from ..parallel.pcg import optimize_6dof_pcg  # lazy: parallel/ imports this package
+
+            out = optimize_6dof_pcg(nodes6, edges6, fix_before,
+                                    iters=max(5, self.pgo_gn_iters // 3),
+                                    cg_iters=self.pgo_cg_iters, coarse_group=32)
+        else:
+            out = optimize_6dof(nodes6, edges6, fix_before, iters=max(10, self.pgo_gn_iters // 3))
         ypr = torch.stack(matrix_to_ypr(quat.to_rotation_matrix(out.q)), dim=-1)
         out_r, ypr = convert.to_numpy_tree((out.r, ypr))
         self.nodes.p[:Np] = out_r

@@ -165,28 +165,35 @@ def _solve_normal_equations(J: torch.Tensor, r: torch.Tensor, ei, ej, N: int, d:
     return -(s * x).reshape(N, d)
 
 
+def _edge_jacobian_4dof(nd: PoseGraphNodes, ei, ej, t_ij, yaw_ij) -> tuple:
+    """(r (E, 4), J (E, 4, 8)) of the 4-DoF residuals over [p_i, yaw_i, p_j,
+    yaw_j], analytic (pitch and roll held)."""
+    r = _edge_residual(nd, ei, ej, t_ij, yaw_ij)
+    E = r.shape[0]
+    z1 = torch.zeros(E, 1, 1, dtype=r.dtype, device=r.device)
+    z3 = torch.zeros(E, 1, 3, dtype=r.dtype, device=r.device)
+    wy = torch.full((E, 1, 1), YAW_WEIGHT, dtype=r.dtype, device=r.device)
+    yaw_row = torch.cat([z3, -wy, z3, wy], dim=-1)  # d r_yaw / d[p_i, yaw_i, p_j, yaw_j]
+    Rt = ypr_to_matrix(nd.yaw[ei], nd.pitch[ei], nd.roll[ei]).transpose(-1, -2)
+    dp = nd.p[ej] - nd.p[ei]
+    # d(R_iᵀ dp)/dyaw_i = R_iᵀ Kzᵀ dp, Kz the yaw generator: Kzᵀ dp = (dp_y, -dp_x, 0)
+    kd = torch.stack([dp[:, 1], -dp[:, 0], torch.zeros_like(dp[:, 0])], dim=-1)
+    J = torch.cat([torch.cat([-Rt, Rt @ kd[..., None], Rt, z1.expand(E, 3, 1)], dim=-1),
+                   yaw_row], dim=1)
+    return r, J
+
+
 def optimize_4dof(nodes: PoseGraphNodes, edges: PoseGraphEdges, fix_before,
                   iters: int = 10) -> PoseGraphNodes:
     """``iters`` GN steps on the 4-DoF graph (position + yaw per node; pitch
     and roll held); nodes below ``fix_before`` (int or 0-d tensor) fixed."""
     N = nodes.p.shape[0]
-    dtype, dev = nodes.p.dtype, nodes.p.device
+    dev = nodes.p.device
     ei, ej = edges.i.long(), edges.j.long()
     free = nodes.valid & (torch.arange(N, device=dev) >= fix_before)
-    E = ei.shape[0]
-    z1 = torch.zeros(E, 1, 1, dtype=dtype, device=dev)
-    z3 = torch.zeros(E, 1, 3, dtype=dtype, device=dev)
-    wy = torch.full((E, 1, 1), YAW_WEIGHT, dtype=dtype, device=dev)
-    yaw_row = torch.cat([z3, -wy, z3, wy], dim=-1)  # d r_yaw / d[p_i, yaw_i, p_j, yaw_j]
     nd = nodes
     for _ in range(iters):
-        r = _edge_residual(nd, ei, ej, edges.t_ij, edges.yaw_ij)
-        Rt = ypr_to_matrix(nd.yaw[ei], nd.pitch[ei], nd.roll[ei]).transpose(-1, -2)
-        dp = nd.p[ej] - nd.p[ei]
-        # d(R_iᵀ dp)/dyaw_i = R_iᵀ Kzᵀ dp, Kz the yaw generator: Kzᵀ dp = (dp_y, -dp_x, 0)
-        kd = torch.stack([dp[:, 1], -dp[:, 0], torch.zeros_like(dp[:, 0])], dim=-1)
-        J = torch.cat([torch.cat([-Rt, Rt @ kd[..., None], Rt, z1.expand(E, 3, 1)], dim=-1),
-                       yaw_row], dim=1)  # (E, 4, 8) over [p_i, yaw_i, p_j, yaw_j]
+        r, J = _edge_jacobian_4dof(nd, ei, ej, edges.t_ij, edges.yaw_ij)
         w = torch.where(edges.valid, edges.weight * _huber_sqrt_weight(r, edges.is_loop),
                         torch.zeros_like(edges.weight))
         dx = _solve_normal_equations(w[:, None, None] * J, w[:, None] * r, ei, ej, N, 4, free,

@@ -7,7 +7,10 @@ two builders give different noise for the same seed; the parity tests feed
 both packages the JAX builder's problem through ``convert``). Beyond the JAX
 builder, ``attach_depth_and_sonar`` adds the water-depth and sonar-range
 factors the engine attaches from its sensor buffers, and ``make_frame``
-synthesises one frame of keypoints for the map matcher.
+synthesises one frame of keypoints for the map matcher. For the scalable
+solvers: ``build_global_ba_problem`` (the global BA problem of the JAX
+builder, numpy-seeded) and ``closer_drive`` (a long loop-closing session as
+image-free keyframe exports, the JAX loop-closer scale test's drive).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 
 from . import sim
 from .cameras import NCameraSystem, make_camera, project
+from .convert import tree_to
 from .estimator import WindowConfig, empty_factors, empty_window, rig_params
 from .imu import ImuParameters, preintegrate, sqrt_information
 from .kinematics import Transformation, compose, from_rq, inverse, transform_point, quaternion as quat
@@ -204,6 +208,44 @@ def attach_depth_and_sonar(factors, truth: dict, window, sonar_slots: Sequence[i
     return factors._replace(depth=dep, sonar=so)
 
 
+def build_global_ba_problem(rng: np.random.Generator = None, K: int = 64, L: int = 4096,
+                            O: int = 16384, dtype=torch.float32, device=None):
+    """Synthetic global bundle-adjustment problem (fixed shapes): K poses
+    along the analytic trajectory over 4 s, L landmarks in a box, O
+    observation slots (slot o: pose o % K, camera (o // K) % C, a random
+    landmark; invalid where the projection misses). The poses and landmarks
+    are the truth. Returns (``parallel.GlobalMapProblem``, rig params), on
+    ``cuda`` unless another device is named (raises without a card)."""
+    from .parallel import GlobalMapProblem
+
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_global_ba_problem: no CUDA device; pass device='cpu'")
+    rng = np.random.default_rng(0) if rng is None else rng
+    rig = euroc_like_rig(device=dev)
+    rig_p = rig_params(rig, dtype, dev)
+    C = rig.num_cameras
+    T = sim.pose(sim.default_trajectory(device=dev),
+                 torch.arange(K, dtype=torch.float64, device=dev) * (4.0 / K) + 0.1)
+    pose_r, pose_q = T.r.to(dtype), T.q.to(dtype)
+    lms = sim.landmark_grid(rng, L, torch.tensor([0.5, 0.5, 5.0], device=dev),
+                            torch.tensor([10.0, 10.0, 4.0], device=dev)).to(dtype)
+    o = torch.arange(O, device=dev)
+    obs_pose, obs_cam = o % K, (o // K) % C
+    obs_lm = torch.as_tensor(rng.integers(0, L, O), device=dev)
+    T_WC = compose(Transformation(r=pose_r[obs_pose], q=pose_q[obs_pose]),
+                   Transformation(r=rig_p.T_SC_r[obs_cam], q=rig_p.T_SC_q[obs_cam]))
+    p_C = transform_point(inverse(T_WC), lms[obs_lm])
+    uv, ok = project(tree_to(rig.cameras[0], dev, dtype), p_C)  # both cameras share intrinsics
+    ok = ok & (p_C[:, 2] > 0.5)
+    prob = GlobalMapProblem(
+        pose_r=pose_r, pose_q=pose_q, pose_fixed=torch.arange(K, device=dev) < 2,
+        lm=lms, lm_valid=torch.ones(L, dtype=torch.bool, device=dev),
+        obs_uv=torch.where(ok[:, None], uv, torch.zeros_like(uv)), obs_pose=obs_pose,
+        obs_lm=obs_lm, obs_cam=obs_cam, obs_valid=ok)
+    return prob, rig_p
+
+
 class Frame(NamedTuple):
     """One frame's matcher inputs (C cameras x K keypoints) plus the map-side
     tables the matcher reads beside the window."""
@@ -335,3 +377,82 @@ def make_frame(rng: np.random.Generator, window, truth: dict, rig_p, lm_desc: np
         lm_cov=(lm_cov_var * torch.eye(3, **kw)).repeat(L, 1, 1),
     )
     return frame, tidx
+
+
+def _random_desc(rng: np.random.RandomState, n: int) -> np.ndarray:
+    return rng.randint(0, 2**32, size=(n, 8)).astype(np.uint32)
+
+
+def keyframe_export(i, t, r, q, *, points_W=None, uv=None, window_desc=None, extra_desc=None,
+                    extra_uv=None, covis=None, sequence=0, rng=None) -> dict:
+    """An image-free keyframe export for ``LoopCloser.add_keyframe`` (the
+    precomputed-descriptor payload): 30 window landmarks in a box ahead of
+    the camera and 120 fresh corners, random descriptors from ``rng``
+    (``RandomState(i)`` by default) unless given."""
+    rng = rng if rng is not None else np.random.RandomState(i)
+    n_pts = 30 if points_W is None else len(points_W)
+    if points_W is None:
+        points_W = rng.rand(n_pts, 3) * 4 + np.array([0, 0, 3.0])
+    if uv is None:
+        uv = rng.rand(n_pts, 2) * np.array([200.0, 150.0])
+    if window_desc is None:
+        window_desc = _random_desc(rng, n_pts)
+    if extra_desc is None:
+        extra_desc = _random_desc(rng, 120)
+    if extra_uv is None:
+        extra_uv = rng.rand(len(extra_desc), 2) * np.array([200.0, 150.0])
+    return {
+        "kf_index": i, "timestamp": float(t), "T_WC_r": np.asarray(r, float),
+        "T_WC_q": np.asarray(q, float), "points_W": np.asarray(points_W, float),
+        "keypoints_uv": np.asarray(uv, float), "window_desc": window_desc,
+        "extra_desc": extra_desc, "extra_uv": np.asarray(extra_uv, np.float32),
+        "extra_valid": np.ones(len(extra_desc), bool),
+        "point_covisibilities": covis if covis is not None else [], "sequence": sequence,
+        "quality": np.ones(n_pts),
+    }
+
+
+def closer_drive(cam, n: int, loop_dst_start: int, radius: float):
+    """A long loop-closing session as image-free keyframe exports: ``n``
+    keyframes on a circle of ``radius`` m whose VIO positions drift linearly
+    to [6, -4, 1.5] m, keyframes 6..15 revisited from ``loop_dst_start`` on
+    (the same world points, in the drifted frame, with the descriptors the
+    early keyframe saw as fresh corners). ``cam`` is the closer's camera.
+    Returns (exports, true positions, VIO positions)."""
+    loop_src = list(range(6, 16))
+    th = np.linspace(0, 2 * np.pi, loop_dst_start, endpoint=False)
+    circ = np.stack([radius * np.cos(th), radius * np.sin(th), np.zeros_like(th)], 1)
+    pos_true = np.concatenate([circ, circ[: n - loop_dst_start]])
+    drift = np.linspace(0, 1, n)[:, None] * np.array([6.0, -4.0, 1.5])
+    pos_vio = pos_true + drift
+    q_id = np.array([0.0, 0.0, 0.0, 1.0])
+
+    def pixels(p_C):
+        uv, ok = project(cam, torch.as_tensor(p_C, dtype=cam.fu.dtype, device=cam.fu.device))
+        return uv.cpu().numpy(), bool(ok.all())
+
+    site = {}
+    for src in loop_src:
+        rngs = np.random.RandomState(5000 + src)
+        pts = (pos_true[src] + np.array([-1.0, -0.8, 4.0])
+               + rngs.rand(60, 3) * np.array([2.0, 1.6, 1.5]))
+        uv, ok = pixels(pts - pos_true[src])  # the early camera at identity rotation
+        if not ok:
+            raise ValueError("closer_drive: a loop site leaves the camera's image")
+        site[src] = (pts, uv, _random_desc(rngs, 60))
+    exports = []
+    for i in range(n):
+        rng = np.random.RandomState(10_000 + i)
+        k = i - loop_dst_start
+        if i in site:
+            _, uv, desc = site[i]
+            e = keyframe_export(i, i, pos_vio[i], q_id, extra_desc=desc, extra_uv=uv, rng=rng)
+        elif 0 <= k < len(loop_src):
+            pts, _, desc = site[loop_src[k]]
+            uv_cur, _ = pixels(pts - pos_true[i])
+            e = keyframe_export(i, i, pos_vio[i], q_id, points_W=pts + drift[i],
+                                uv=uv_cur.astype(float), window_desc=desc, rng=rng)
+        else:
+            e = keyframe_export(i, i, pos_vio[i], q_id, rng=rng)
+        exports.append(e)
+    return exports, pos_true, pos_vio

@@ -473,3 +473,110 @@ def test_pose_graph_solve_never_waits_on_the_host(dev, mode):
     got = (out.p if mode == "4dof" else out.r).cpu().double()
     want = ref.p if mode == "4dof" else ref.r
     assert float((got - want).abs().max()) < 1e-3
+
+
+def _circle_graph(mode, N, seed=7):
+    """A circle of radius 20 m lapped twice whose initial guess drifts (yaw;
+    and roll and pitch in 6-DoF), exact odometry edges and loop edges from the
+    second lap to the first every 16 nodes, as numpy port tables."""
+    from svin_tpu_torch.kinematics import npq
+    from svin_tpu_torch.loopclosure import posegraph as tpg
+
+    rng = np.random.default_rng(seed)
+    th = np.linspace(0, 4 * np.pi, N)
+    p_gt = np.stack([20.0 * np.cos(th), 20.0 * np.sin(th), 0.1 * np.sin(3 * th)], 1)
+    yaw_gt = th + np.pi / 2
+    drift = np.cumsum(rng.normal(0, 2e-3, (N, 3)), axis=0) * ([1.0, 0.4, 0.4] if mode == "6dof"
+                                                               else [1.0, 0.0, 0.0])
+    R_gt = [tpg.ypr_to_matrix_np(y, 0, 0) for y in yaw_gt]
+    R0 = [tpg.ypr_to_matrix_np(yaw_gt[k] + drift[k, 0], drift[k, 1], drift[k, 2]) for k in range(N)]
+    p0 = np.cumsum([p_gt[0]] + [R0[k - 1] @ R_gt[k - 1].T @ (p_gt[k] - p_gt[k - 1])
+                                for k in range(1, N)], axis=0)
+    pairs = [(k - 1, k) for k in range(1, N)] + [(k - N // 2, k) for k in range(N // 2 + 4, N, 16)]
+    i, j = (np.array(x, np.int64) for x in zip(*pairs))
+    t_ij = np.stack([R_gt[a].T @ (p_gt[b] - p_gt[a]) for a, b in pairs])
+    E, ones = len(pairs), np.ones(len(pairs), bool)
+    if mode == "4dof":
+        nodes = tpg.PoseGraphNodes(p=p0, yaw=yaw_gt + drift[:, 0], pitch=np.zeros(N),
+                                   roll=np.zeros(N), valid=np.ones(N, bool))
+        edges = tpg.PoseGraphEdges(i=i, j=j, t_ij=t_ij, yaw_ij=yaw_gt[j] - yaw_gt[i],
+                                   weight=np.ones(E), is_loop=i < j - 1, valid=ones)
+    else:
+        nodes = tpg.PoseGraph6Nodes(r=p0, q=np.stack([npq.from_rotation_matrix(R) for R in R0]),
+                                    valid=np.ones(N, bool))
+        edges = tpg.PoseGraph6Edges(
+            i=i, j=j, t_ij=t_ij, q_ij=np.stack([npq.from_rotation_matrix(R_gt[a].T @ R_gt[b])
+                                                for a, b in pairs]),
+            sqrt_info=np.tile(np.diag([20.0, 20, 20, 100, 100, 57.3]), (E, 1, 1)), valid=ones)
+    return nodes, edges, p_gt
+
+
+def _tables_on(t, dev, dtype):
+    return type(t)(*(None if x is None else torch.as_tensor(
+        x, device=dev, dtype=dtype if np.asarray(x).dtype.kind == "f" else None) for x in t))
+
+
+@pytest.mark.parametrize("mode", ["4dof", "6dof"])
+def test_scalable_pose_graph_solve_never_waits_on_the_host(dev, mode):
+    """The solvers past 512 nodes (4-DoF: the banded API, which runs the
+    closer's ``optimize_4dof_pcg``, 6 GN x 96 CG; 6-DoF: PCG, 5 GN x 96 CG;
+    coarse groups of 32) on a 128-node circle on the card, float32: no host synchronisation under the sync debug mode,
+    and the float64 CPU solve's outcome: its final cost within 10% and the
+    path within 2 cm (the chain's slow yaw ramp is a quasi-null mode, along
+    which float32 and float64 runs part by up to ~1 cm: chip_smoke.py's
+    phase 7 prints it)."""
+    from svin_tpu_torch import parallel as tpar
+
+    nodes, edges, _ = _circle_graph(mode, 128)
+
+    def run(d, dtype, iters):
+        nd, ed = _tables_on(nodes, d, dtype), _tables_on(edges, d, dtype)
+        if mode == "4dof":
+            prob, meta = tpar.band_posegraph(nd, ed, block=1024, wmax=4, coarse_group=32)
+            return lambda: tpar.optimize_4dof_banded(prob, meta, 1, iters=iters, cg_iters=96)
+        return lambda: (tpar.optimize_6dof_pcg(nd, ed, 1, iters=iters, cg_iters=96,
+                                               coarse_group=32), None)
+
+    ref, ref_cost = run("cpu", torch.float64, 6 if mode == "4dof" else 5)()
+    solve = run(dev, torch.float32, 6 if mode == "4dof" else 5)
+    run(dev, torch.float32, 1)()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, cost = solve()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = (out.p if mode == "4dof" else out.r)[:128].cpu().double()
+    want = (ref.p if mode == "4dof" else ref.r)[:128]
+    assert float((got - want).abs().max()) < 0.02
+    if cost is not None:
+        assert abs(float(cost) - float(ref_cost)) <= 0.1 * float(ref_cost) + 1e-6
+
+
+@pytest.mark.parametrize("K,route", [(12, "spd_solve_chol"), (64, "spd_solve_cluster")])
+def test_global_ba_runs_on_the_solve_kernels(dev, K, route):
+    """``ba_solve_local`` on the card (float32) solves its reduced system of
+    D = 6K through B1 (the one-block kernel at D = 72, the cluster kernel at
+    D = 384), once per GN iteration, with no host synchronisation; its
+    poses within 1e-4 m of the same run with the plain solve on the card and
+    within 1e-3 m of the truth from a 5 cm perturbation."""
+    from svin_tpu_torch import parallel as tpar
+
+    prob, rig = problems.build_global_ba_problem(np.random.default_rng(0), K=K, L=512, O=4096,
+                                                 device=dev)
+    dp = torch.as_tensor(np.random.default_rng(1).normal(0, 0.05, (K, 3)), dtype=torch.float32,
+                         device=dev)
+    start = prob._replace(pose_r=prob.pose_r + dp * (~prob.pose_fixed)[:, None])
+    tpar.ba_solve_local(start, rig, iters=1)  # warm-up: builds and loads the kernels
+    torch.cuda.synchronize()
+    n0 = getattr(tsolve, route).launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, cost = tpar.ba_solve_local(start, rig, iters=5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert getattr(tsolve, route).launches == n0 + 5
+    plain, cost_p = tpar.ba_solve_local(start, rig, iters=5, solve=tsolve.solve_spd_plain)
+    assert float((out.pose_r - plain.pose_r).abs().max()) < 1e-4
+    assert float((out.pose_r - prob.pose_r).abs().max()) < 1e-3
+    assert torch.isfinite(cost) and float(cost) < 1e-3
