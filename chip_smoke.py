@@ -2,8 +2,9 @@
 """Chip check of the PyTorch/CUDA port: build its CUDA kernels, hold each to
 its plain PyTorch version on the card, then drive the VIO backend's
 per-frame step, the engine (serial and pipelined), the loop closer (to past
-2,048 keyframes), the offline app and global bundle adjustment at the
-shipped shapes and check what comes out.
+2,048 keyframes), the offline app, global bundle adjustment (to the Cave
+shape) and the flagship step at the shipped shapes and check what comes
+out.
 
     python3 chip_smoke.py
 
@@ -188,6 +189,20 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
    the share of its solve, the cluster kernel timed beside the library
    Cholesky on the step's own system.
 
+9. Global BA at the Cave shape: ``build_global_ba_tracks`` at 2,048
+   keyframes and 65,536 landmarks (span 8, two cameras, 2% revisits),
+   float32, free poses perturbed by 2 cm and landmarks by 5 cm, through
+   ``ba_solve_tracks`` (64 blocks of 1,024 landmarks, 16 slots each) and
+   ``ba_solve_pcg`` (``bucket_problem``'s default buckets, pose-major
+   index), both at bench.py's 2 GN x 32 CG: the cost falls on both, one
+   track solve without a host sync (sync debug mode "error"), the two
+   within TRACKS_PCG_TOL_M, no kernel launched; ms per GN step (median of
+   3, in turns), traced device ms and operations per GN step, device-busy
+   share and peak memory per run. Then the card's float32 track solve at
+   K = 256, L = 8,192 against the port's float64 one on the CPU. Last the
+   flagship step (``svin_tpu_torch.entry``): a finite cost below the
+   start's, median ms.
+
 The second-to-last line of standard output is the kernels' JSON record; the
 last is ``{"ok": true, "device": {...}}``.
 """
@@ -208,7 +223,7 @@ import torch
 
 from svin_tpu_torch import problems, sim
 from svin_tpu_torch.convert import tree_to
-from svin_tpu_torch.estimator import WindowConfig, optimize
+from svin_tpu_torch.estimator import WindowConfig, optimize, rig_params
 from svin_tpu_torch.kinematics import Transformation
 from svin_tpu_torch.evaluation import ate_rmse
 from svin_tpu_torch.loopclosure.loop_closure import DESC_DIST_LOOP
@@ -1179,9 +1194,12 @@ def async_drive(engine, events, blocking=True, pace=None) -> dict:
                 wall=wall, engine=engine)
 
 
-def busy_share(fn) -> tuple:
-    """(device-busy share, wall s) of ``fn()`` under ``torch.profiler``: the
-    union of the device operations' intervals over the wall time."""
+def device_profile(fn, top: int = 0) -> dict:
+    """One ``fn()`` under ``torch.profiler``: the device-busy share (the
+    union of the device operations' intervals over the wall time, which the
+    profiler's own host cost lengthens), the wall s, the summed device ms
+    and the number of device operations, and the ``top`` operation names by
+    device ms as (name, ms, count)."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1189,14 +1207,20 @@ def busy_share(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy, end = 0.0, -np.inf
-    for a, b in spans:
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in on_card):
         if b > end:
             busy += b - max(a, end)
             end = b
-    return busy * 1e-6 / wall, wall
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in on_card:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"busy": busy * 1e-6 / wall, "wall": wall,
+            "ms": sum(e.time_range.elapsed_us() for e in on_card) / 1e3, "ops": len(on_card),
+            "top": [(name[:60], round(ms, 3), n) for name, (ms, n) in ranked]}
 
 
 def npz_arrays(path) -> dict:
@@ -1312,10 +1336,11 @@ def pipelined_phase(dev, cfg, events, gt) -> dict:
         if ev.kind == "frame" and sum(e.kind == "frame" for e in first) == 6:
             break
         first.append(ev)
-    busy_s, wall_s = busy_share(lambda: run_events(VioEngine(cfg, device=dev), first))
-    busy_p, wall_p = busy_share(lambda: async_drive(VioEngine(cfg, device=dev), first))
-    log(f"device busy over the first 6 frames (torch.profiler): serial {100 * busy_s:.1f}% of "
-        f"{wall_s:.2f} s, pipelined (AsyncVioEngine) {100 * busy_p:.1f}% of {wall_p:.2f} s")
+    ser = device_profile(lambda: run_events(VioEngine(cfg, device=dev), first))
+    pip = device_profile(lambda: async_drive(VioEngine(cfg, device=dev), first))
+    log(f"device busy over the first 6 frames (torch.profiler): serial {100 * ser['busy']:.1f}% "
+        f"of {ser['wall']:.2f} s, pipelined (AsyncVioEngine) {100 * pip['busy']:.1f}% of "
+        f"{pip['wall']:.2f} s")
 
     # ---- live mode, fed at the sequence's rate
     out = async_drive(VioEngine(cfg, device=dev), events, blocking=False, pace=1.0)
@@ -2277,6 +2302,160 @@ def global_ba_phase(dev) -> dict:
     return launches
 
 
+# ------------------------------------------------- global BA at the Cave shape
+CAVE = (2048, 65536, 8, 1024)  # keyframes, landmarks, span, block: bench.py's track shape
+CAVE_REDUCED = (256, 8192, 8, 256)  # the shape the float64 CPU solve checks the card at
+CAVE_GN, CAVE_CG = 2, 32  # bench.py's budget
+# the track solver and the bucketed PCG, float32 on the card, on the same
+# problem: the same linear algebra summed in other orders, which a truncated
+# CG carries into the poses (they part by 2.6e-5 / 4.2e-5 m on the CPU in
+# float32 at K = 512 / 256, and by 1e-13 in float64)
+TRACKS_PCG_TOL_M = 5e-4
+# the card's float32 track solve against the port's float64 one on the CPU at
+# CAVE_REDUCED: poses (the CPU's float32 solve lands 2.5e-5 m off), and the
+# cost, which float32 rounds at ~2e-5 px per 400 px projection where the
+# residuals left are ~1e-2 px
+TRACKS_F64_TOL_M, TRACKS_F64_COST_RTOL = 2e-4, 5e-3
+
+
+def cave_problem(K, L, span, dtype, dev, seed=5):
+    """``problems.build_global_ba_tracks`` (float ``dtype`` on ``dev``), its
+    free poses moved by 2 cm and its landmarks by 5 cm (seeded; the JAX
+    tests' perturbation, tests/test_tracks.py:122): (truth, start, rig)."""
+    prob, rig = problems.build_global_ba_tracks(np.random.default_rng(seed), K=K, L=L, span=span,
+                                                dtype=dtype, device=dev)
+    rng = np.random.default_rng(seed + 1)
+    dp = torch.as_tensor(rng.normal(0, 0.02, (K, 3)), dtype=dtype, device=dev)
+    dl = torch.as_tensor(rng.normal(0, 0.05, (L, 3)), dtype=dtype, device=dev)
+    return prob, prob._replace(pose_r=prob.pose_r + dp * (~prob.pose_fixed)[:, None],
+                               lm=prob.lm + dl), rig
+
+
+def cave_ba_phase(dev) -> dict:
+    """Global BA at the Cave shape: ``build_global_ba_tracks`` at 2,048
+    keyframes and 65,536 landmarks (span 8, float32, on the card),
+    perturbed, through ``ba_solve_tracks`` (blocks of 1,024: 64 blocks, 16
+    slots per landmark) and through ``ba_solve_pcg`` on ``bucket_problem``'s
+    default buckets with ``pose_major_index``, both at bench.py's budget (2
+    GN x 32 CG): the cost falls on both, one track solve under the sync
+    debug mode that raises, the two solvers' poses within
+    TRACKS_PCG_TOL_M, no kernel launched (counts from 0 just before, read
+    just after). ms per GN step (host, median of 3, in turns), traced device
+    ms and operations per GN step, the device-busy share and the peak memory
+    of a run. Then at CAVE_REDUCED the card's float32 track solve against
+    the port's float64 one on the CPU (one thread): poses within
+    TRACKS_F64_TOL_M, cost within TRACKS_F64_COST_RTOL."""
+    from svin_tpu_torch import parallel as tpar
+
+    K, L, span, block = CAVE
+    t0 = time.perf_counter()
+    _, start, rig = cave_problem(K, L, span, torch.float32, dev)
+    tp, meta, _ = tpar.tracks_from_problem(start, span=span, block=block)
+    bp = tpar.bucket_problem(start)
+    perm = tpar.pose_major_index(bp.obs_pose, bp.obs_valid, K)
+    torch.cuda.synchronize()
+    log(f"global BA at the Cave shape [K={K}, L={L}, span {span}]: {int(start.obs_valid.sum())} "
+        f"valid observations ({int(tp.ov_valid.sum())} in the overflow, M={meta.M}); tracks "
+        f"{meta.n_blocks} blocks of {meta.B}, {meta.slots} slots, window S={meta.S}; PCG buckets "
+        f"R={bp.obs_pose.shape[1]}, pose-major index {tuple(perm.shape)}; build and relayouts "
+        f"{time.perf_counter() - t0:.1f} s")
+    routes = {
+        "tracks": lambda: tpar.ba_solve_tracks(tp, rig, meta, iters=CAVE_GN, cg_iters=CAVE_CG),
+        "pcg": lambda: tpar.ba_solve_pcg(bp, rig, iters=CAVE_GN, cg_iters=CAVE_CG, pose_perm=perm),
+    }
+    _, cost0 = tpar.ba_solve_tracks(tp, rig, meta, iters=0)
+    reset_counts()
+    out, peak = {}, {}
+    for name, run in routes.items():
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = run()
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    launches = read_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        routes["tracks"]()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ms = {k: [] for k in routes}
+    for _ in range(3):
+        for name, run in routes.items():
+            ms[name] += timed_ms(run, n=1)
+    (res_t, cost_t), (res_p, cost_p) = out["tracks"], out["pcg"]
+    d_pose = float((res_t.pose_r - res_p.pose_r).abs().max())
+    d_q = float((res_t.pose_q - res_p.pose_q).abs().max())
+    for name, run in routes.items():
+        run()
+        prof = device_profile(run, top=6)
+        step = statistics.median(ms[name]) / CAVE_GN
+        log(f"  [{name}] ms per GN step median {step:.3f} ({[round(x / CAVE_GN, 3) for x in ms[name]]}); "
+            f"device per GN step {prof['ms'] / CAVE_GN:.3f} ms in {prof['ops'] / CAVE_GN:g} "
+            f"operations ({100 * prof['ms'] / CAVE_GN / step:.1f}% of the unprofiled step; busy "
+            f"{100 * prof['busy']:.1f}% of the profiled run's wall time); peak memory "
+            f"{peak[name]:.3f} GiB above the problem; device ms by operation (whole run) "
+            f"{prof['top']}")
+    line = (f"  cost {float(cost0):.2f} -> tracks {float(cost_t):.4f}, PCG {float(cost_p):.4f}; poses "
+            f"of the two within {d_pose * 1e3:.5f} mm (quaternions {d_q:.3e}); one track solve made "
+            f"no host sync; launches {launches}")
+    log(line)
+    if not (float(cost_t) < float(cost0) and float(cost_p) < float(cost0)
+            and d_pose < TRACKS_PCG_TOL_M and not any(launches.values())):
+        raise AssertionError("global BA at the Cave shape:" + line)
+
+    K, L, span, block = CAVE_REDUCED
+    truth, start, rig64 = cave_problem(K, L, span, torch.float64, "cpu", seed=7)
+    tp64, meta, _ = tpar.tracks_from_problem(start, span=span, block=block)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t0 = time.perf_counter()
+        ref, ref_cost = tpar.ba_solve_tracks(tp64, rig64, meta, iters=CAVE_GN, cg_iters=CAVE_CG)
+        t_ref = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    got, cost = tpar.ba_solve_tracks(tree_to(tp64, dev, torch.float32), tree_to(rig64, dev, torch.float32),
+                                     meta, iters=CAVE_GN, cg_iters=CAVE_CG)
+    err = float((got.pose_r.cpu().double() - ref.pose_r).abs().max())
+    c_err = abs(float(cost) - float(ref_cost)) / float(ref_cost)
+    line = (f"global BA, tracks at K={K}, L={L} (blocks of {block}): the card's float32 solve within "
+            f"{err * 1e3:.5f} mm and cost {c_err:.2e} relative of the float64 CPU solve's "
+            f"({float(ref_cost):.4f}, {t_ref:.1f} s on one thread); truth within "
+            f"{float((ref.pose_r - truth.pose_r).abs().max()) * 1e3:.3f} mm")
+    log(line)
+    if not (err < TRACKS_F64_TOL_M and c_err < TRACKS_F64_COST_RTOL):
+        raise AssertionError(line)
+    return launches
+
+
+def entry_phase(dev) -> dict:
+    """The flagship step (``svin_tpu_torch.entry``: S=8, 512 / 4096 slots,
+    256 live landmarks, 5 LM iterations, float32): a finite cost below the
+    start's and its median ms over 5 calls (host, synchronized), launch
+    counts from 0 just before the first call, read after the last."""
+    from svin_tpu_torch.entry import entry
+    from svin_tpu_torch.estimator.gauss_newton import total_cost
+
+    step, (window, factors) = entry()
+    cfg = WindowConfig(num_states=8, num_landmarks=512, num_obs=4096, max_iterations=5)
+    rig = rig_params(problems.euroc_like_rig(device=dev), torch.float32, dev)
+    cost0 = total_cost(window, factors, rig, problems.IMU_PARAMS, cfg)
+    reset_counts()
+    r, cost = step(window, factors)
+    ms = timed_ms(lambda: step(window, factors), n=5)
+    launches = read_counts()
+    line = (f"flagship step (entry(): S=8, 512 / 4096 slots, 5 LM iterations, float32): cost "
+            f"{float(cost0):.4f} -> {float(cost):.6f}, median {statistics.median(ms):.3f} ms "
+            f"({[round(x, 3) for x in ms]}); launches { {k: v for k, v in launches.items() if v} }")
+    log(line)
+    if not (torch.isfinite(r).all() and float(cost) < float(cost0)
+            and launches["spd_solve_chol"] > 0):
+        raise AssertionError(line)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
@@ -2317,15 +2496,19 @@ def main() -> int:
     loop_launches, closer_launches = phase("loop closure", loop_phase, dev)
     drive_launches = phase("closer past 512", scalable_phase, dev)
     ba_launches = phase("global BA", global_ba_phase, dev)
+    cave_launches = phase("global BA, Cave shape", cave_ba_phase, dev)
+    entry_launches = phase("flagship step", entry_phase, dev)
     log(f"wall seconds per phase: {phase_s}")
     launches = {k: launches[k] + engine_launches[k] + large_launches[k] + pipelined_launches[k]
-                + loop_launches[k] + drive_launches[k] + ba_launches[k] for k in KERNELS}
+                + loop_launches[k] + drive_launches[k] + ba_launches[k] + cave_launches[k]
+                + entry_launches[k] for k in KERNELS}
     closer_launches = {k: closer_launches[k] + drive_launches[k] for k in KERNELS}
     log(f"launches summed over the backend-step, engine (S=8 and S=22), pipelined, "
-        f"loop-closure, closer past 512 and global BA paths: {launches} (S=22 engine: "
-        f"{large_launches}; loop-closure phase, the apps' engine included: {loop_launches}; the "
-        f"loop closer alone, the {DRIVE[0]}-keyframe drive included: {closer_launches}; global "
-        f"BA: {ba_launches})")
+        f"loop-closure, closer past 512, global BA (K <= 170 and the Cave shape) and "
+        f"flagship-step paths: {launches} (S=22 engine: {large_launches}; loop-closure phase, "
+        f"the apps' engine included: {loop_launches}; the loop closer alone, the "
+        f"{DRIVE[0]}-keyframe drive included: {closer_launches}; global BA: {ba_launches}; "
+        f"flagship step: {entry_launches})")
 
     ret, ver = loop_timings["retrieval"], loop_timings["verification"]
     near = loop_timings["nearest"]

@@ -8,8 +8,9 @@ both packages the JAX builder's problem through ``convert``). Beyond the JAX
 builder, ``attach_depth_and_sonar`` adds the water-depth and sonar-range
 factors the engine attaches from its sensor buffers, and ``make_frame``
 synthesises one frame of keypoints for the map matcher. For the scalable
-solvers: ``build_global_ba_problem`` (the global BA problem of the JAX
-builder, numpy-seeded) and ``closer_drive`` (a long loop-closing session as
+solvers: ``build_global_ba_problem`` and ``build_global_ba_tracks`` (the
+JAX builders' global BA problems, random slots and contiguous tracks,
+numpy-seeded) and ``closer_drive`` (a long loop-closing session as
 image-free keyframe exports, the JAX loop-closer scale test's drive).
 """
 from __future__ import annotations
@@ -208,6 +209,35 @@ def attach_depth_and_sonar(factors, truth: dict, window, sonar_slots: Sequence[i
     return factors._replace(depth=dep, sonar=so)
 
 
+def _global_map(name: str, rng, K: int, L: int, dtype, device):
+    """The global BA builders' common part: the device (``cuda`` unless
+    another is named; raises without a card), the rig and its parameters,
+    K poses along the analytic trajectory over 4 s and L landmarks in a box
+    drawn from ``rng``."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{name}: no CUDA device; pass device='cpu'")
+    rig = euroc_like_rig(device=dev)
+    rig_p = rig_params(rig, dtype, dev)
+    T = sim.pose(sim.default_trajectory(device=dev),
+                 torch.arange(K, dtype=torch.float64, device=dev) * (4.0 / K) + 0.1)
+    lms = sim.landmark_grid(rng, L, torch.tensor([0.5, 0.5, 5.0], device=dev),
+                            torch.tensor([10.0, 10.0, 4.0], device=dev)).to(dtype)
+    return dev, rig, rig_p, T.r.to(dtype), T.q.to(dtype), lms
+
+
+def _observe(rig, rig_p, pose_r, pose_q, lms, pi, li, ci):
+    """Pixels of landmarks ``li`` from poses ``pi`` through cameras ``ci``
+    (both cameras share intrinsics), zero where invalid, and validity:
+    in the image and more than 0.5 m ahead."""
+    T_WC = compose(Transformation(r=pose_r[pi], q=pose_q[pi]),
+                   Transformation(r=rig_p.T_SC_r[ci], q=rig_p.T_SC_q[ci]))
+    p_C = transform_point(inverse(T_WC), lms[li])
+    uv, ok = project(tree_to(rig.cameras[0], lms.device, lms.dtype), p_C)
+    ok = ok & (p_C[:, 2] > 0.5)
+    return torch.where(ok[:, None], uv, torch.zeros_like(uv)), ok
+
+
 def build_global_ba_problem(rng: np.random.Generator = None, K: int = 64, L: int = 4096,
                             O: int = 16384, dtype=torch.float32, device=None):
     """Synthetic global bundle-adjustment problem (fixed shapes): K poses
@@ -218,31 +248,63 @@ def build_global_ba_problem(rng: np.random.Generator = None, K: int = 64, L: int
     ``cuda`` unless another device is named (raises without a card)."""
     from .parallel import GlobalMapProblem
 
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_global_ba_problem: no CUDA device; pass device='cpu'")
     rng = np.random.default_rng(0) if rng is None else rng
-    rig = euroc_like_rig(device=dev)
-    rig_p = rig_params(rig, dtype, dev)
-    C = rig.num_cameras
-    T = sim.pose(sim.default_trajectory(device=dev),
-                 torch.arange(K, dtype=torch.float64, device=dev) * (4.0 / K) + 0.1)
-    pose_r, pose_q = T.r.to(dtype), T.q.to(dtype)
-    lms = sim.landmark_grid(rng, L, torch.tensor([0.5, 0.5, 5.0], device=dev),
-                            torch.tensor([10.0, 10.0, 4.0], device=dev)).to(dtype)
+    dev, rig, rig_p, pose_r, pose_q, lms = _global_map("build_global_ba_problem", rng, K, L,
+                                                       dtype, device)
     o = torch.arange(O, device=dev)
-    obs_pose, obs_cam = o % K, (o // K) % C
+    obs_pose, obs_cam = o % K, (o // K) % rig.num_cameras
     obs_lm = torch.as_tensor(rng.integers(0, L, O), device=dev)
-    T_WC = compose(Transformation(r=pose_r[obs_pose], q=pose_q[obs_pose]),
-                   Transformation(r=rig_p.T_SC_r[obs_cam], q=rig_p.T_SC_q[obs_cam]))
-    p_C = transform_point(inverse(T_WC), lms[obs_lm])
-    uv, ok = project(tree_to(rig.cameras[0], dev, dtype), p_C)  # both cameras share intrinsics
-    ok = ok & (p_C[:, 2] > 0.5)
+    uv, ok = _observe(rig, rig_p, pose_r, pose_q, lms, obs_pose, obs_lm, obs_cam)
+    prob = GlobalMapProblem(
+        pose_r=pose_r, pose_q=pose_q, pose_fixed=torch.arange(K, device=dev) < 2,
+        lm=lms, lm_valid=torch.ones(L, dtype=torch.bool, device=dev), obs_uv=uv,
+        obs_pose=obs_pose, obs_lm=obs_lm, obs_cam=obs_cam, obs_valid=ok)
+    return prob, rig_p
+
+
+def build_global_ba_tracks(rng: np.random.Generator = None, K: int = 2048, L: int = 65536,
+                           span: int = 8, revisit_frac: float = 0.02, dtype=torch.float32,
+                           device=None):
+    """Synthetic global BA problem with the track structure of real SLAM
+    maps: landmark l is born at a pose drawn uniformly from [0, K) and seen
+    by a contiguous run of 2..span keyframes from every camera. The slot
+    grid is (L, span, C), O = L·span·C + n_rev observations, masked by
+    projection validity. ``max(1, L·revisit_frac)`` landmarks also get a
+    loop-closure re-observation from camera 0 of a pose K//4 .. K//2 - 1
+    after their birth (the track solver's overflow path). The first two
+    poses are fixed; poses and landmarks are the truth. Returns
+    (``parallel.GlobalMapProblem``, rig params), on ``cuda`` unless another
+    device is named (raises without a card)."""
+    from .parallel import GlobalMapProblem
+
+    rng = np.random.default_rng(0) if rng is None else rng
+    dev, rig, rig_p, pose_r, pose_q, lms = _global_map("build_global_ba_tracks", rng, K, L,
+                                                       dtype, device)
+    C = rig.num_cameras
+    birth = rng.integers(0, K, L)
+    length = rng.integers(2, span + 1, L)
+    r_off = np.arange(span)
+    grid = (L, span, C)
+    obs_pose = np.broadcast_to(np.minimum(birth[:, None] + r_off, K - 1)[:, :, None], grid)
+    obs_lm = np.broadcast_to(np.arange(L)[:, None, None], grid)
+    obs_cam = np.broadcast_to(np.arange(C)[None, None, :], grid)
+    in_run = np.broadcast_to(((r_off < length[:, None]) & (birth[:, None] + r_off < K))[:, :, None],
+                             grid)
+    n_rev = max(1, int(L * revisit_frac))
+    rev_lm = rng.integers(0, L, n_rev)
+    rev_pose = np.minimum(birth[rev_lm] + rng.integers(K // 4, K // 2, n_rev), K - 1)
+    pi = torch.as_tensor(np.concatenate([obs_pose.reshape(-1), rev_pose]), device=dev)
+    li = torch.as_tensor(np.concatenate([obs_lm.reshape(-1), rev_lm]), device=dev)
+    ci = torch.as_tensor(np.concatenate([obs_cam.reshape(-1), np.zeros(n_rev, np.int64)]),
+                         device=dev)
+    uv, ok = _observe(rig, rig_p, pose_r, pose_q, lms, pi, li, ci)
+    ok = ok & torch.as_tensor(np.concatenate([in_run.reshape(-1), np.ones(n_rev, bool)]),
+                              device=dev)
     prob = GlobalMapProblem(
         pose_r=pose_r, pose_q=pose_q, pose_fixed=torch.arange(K, device=dev) < 2,
         lm=lms, lm_valid=torch.ones(L, dtype=torch.bool, device=dev),
-        obs_uv=torch.where(ok[:, None], uv, torch.zeros_like(uv)), obs_pose=obs_pose,
-        obs_lm=obs_lm, obs_cam=obs_cam, obs_valid=ok)
+        obs_uv=torch.where(ok[:, None], uv, torch.zeros_like(uv)), obs_pose=pi, obs_lm=li,
+        obs_cam=ci, obs_valid=ok)
     return prob, rig_p
 
 
