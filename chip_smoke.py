@@ -32,16 +32,24 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
      distance to the plain (Cholesky) solution ≤ 1e-3, and a batch of four
      at D = 120 with one non-SPD system that must come out all NaN; timed
      at D = 120 and 132 beside ``cholesky_ex`` + ``cholesky_solve``. Past
-     one block's shared memory, ``solve_spd`` at D = 330, 384, 512, 768,
-     1024 through the cluster kernel (the same tolerances, the route's
-     count), a batch of three at D = 384 with one non-SPD system, float64
-     and D = 1100 through the library route (float64 equal to the plain
-     solve); the cluster kernel timed at each D beside the library.
+     one block's shared memory, the cluster kernel's launch plan
+     (``solve.cluster_plan``) and ``cudaOccupancyMaxActiveClusters`` at
+     each D (the run fails if the card cannot hold one such cluster), then
+     ``solve_spd`` at D = 330, 384, 512, 768, 1020, 1024 through the cluster
+     kernel (the same tolerances, the route's count), a batch of three at
+     D = 384 with one non-SPD system, float64 and D = 1100 through the
+     library route (float64 equal to the plain solve); the cluster kernel
+     timed at each D beside the library.
    - The fused matcher bit for bit equal to the plain matcher
      (``match_descriptors_plain``) on planted cases (row and column ties,
      fully masked rows and columns, invalid keypoints and landmarks) and at
      the three matchers' shapes with random masks, ratio 0 and 0.8, mutual
-     on and off; timed beside the distance-matrix kernel + ``match()``.
+     on and off; timed beside the distance-matrix kernel + ``match()``,
+     with its device operations per call from a trace (one launch; the run
+     fails at more, or when no trace reads them), its host µs per call and
+     its bounds: its 1-bit tensor-core path at the int8 rate, and the
+     pair-words as popcounts at ``__popc``'s rate. The planted cases include
+     one of 1,100 rows, more than a cluster takes in one pass per CTA.
 3. Slice: S=8 states, 512 landmark slots (256 live), 4096 observation
    slots, two 752x480 cameras, K=400 keypoints per camera, 10 LM
    iterations, float32, with depth factors on every state and sonar-range
@@ -318,11 +326,28 @@ POPC_PER_S = 16 * 132 * 1.98e9
 TIMED_LAUNCHES = 200
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple:
+# dense int8 tensor-core rate (NVIDIA data sheet); the H100's 1-bit mma
+# (AND + popcount) has no published rate, so the int8 rate stands in for it
+INT8_TC_OPS_PER_S = 1979e12
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple:
     """(least time in ms, what bounds it): the larger of the bytes over the
-    memory rate and the operations over the float32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    memory rate and the operations over their rate (float32 by default)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def matcher_bound(n_bytes: float, n_pairs: int, words: int) -> dict:
+    """The fused matcher's bounds. ``bound_ms``: the path the kernel takes,
+    its bytes against the 1-bit tensor-core product (a multiply-accumulate
+    per bit of every pair, 2 operations, at the int8 rate).
+    ``popc_bound_ms``: its bytes against its pair-words as popcounts at
+    ``__popc``'s rate (the nearest codeword's count), a path it does not
+    take."""
+    bms, by = bound(n_bytes, 2 * n_pairs * words * 32, INT8_TC_OPS_PER_S)
+    return dict(bound_ms=bms, bound_by=by,
+                popc_bound_ms=bound(n_bytes, n_pairs * words, POPC_PER_S)[0])
 
 
 def device_ms(fn, n: int = TIMED_LAUNCHES, warmup: int = 10) -> tuple:
@@ -392,6 +417,18 @@ def traced_ms(fn, n: int = 50, tries: int = 4, agree: bool = True) -> tuple:
             return sum(e.time_range.elapsed_us() for e in on_card) / n / 1e3, count / n
         last = count
     return None, 0
+
+
+def one_launch(fn, where: str) -> tuple:
+    """``traced_ms`` of a fused-matcher call, which must be one device
+    operation: fails at more, and when no two of ten traces agree."""
+    ms, ops = traced_ms(fn, tries=10)
+    if ms is None:
+        raise AssertionError(f"fused matcher at {where}: device operations per call not measured "
+                             f"(no two of ten traces agreed)")
+    if ops != 1:
+        raise AssertionError(f"fused matcher at {where}: {ops:g} device operations per call, not 1")
+    return ms, ops
 
 
 def traced_text(ms, ops) -> str:
@@ -468,6 +505,15 @@ def large_solve_phase(rng, dev) -> dict:
     ``solve_spd`` at D = 330 (the S=22 window), 384, 512, 768, 1020, 1024, a batch
     with a non-SPD system, the float64 and D > 1024 library route; timed at
     each D in turns with ``cholesky_ex`` + ``cholesky_solve``."""
+    plans = {}
+    for D in LARGE_DS:
+        plan = solve.cluster_plan(D)
+        plans[D] = dict(cluster=plan.cluster, max_active_clusters=solve.cluster_max_active(D, dev))
+        log(f"B1 cluster plan D={D}: {plan.cluster} CTAs, {plan.ntiles} tiles and {plan.ring} ring "
+            f"slots per CTA, {plan.smem_bytes} B of shared memory per CTA; "
+            f"cudaOccupancyMaxActiveClusters {plans[D]['max_active_clusters']}")
+        if plans[D]["max_active_clusters"] < 1:
+            raise AssertionError(f"the card cannot schedule the cluster plan of D={D}")
     for D in LARGE_DS:
         check_solve(*equilibrated_spd(rng, D, dev), f"D={D}", "spd_solve_cluster")
     Hs, bs = zip(*(equilibrated_spd(rng, 384, dev) for _ in range(3)))
@@ -505,7 +551,7 @@ def large_solve_phase(rng, dev) -> dict:
         rows[D] = dict(max_abs_err=err, ms=t["kernel"][0], host_us=t["kernel"][1],
                        plain_ms=t["plain"][0], library_ms=t["library"][0], bound_ms=bms,
                        bound_by=by, traced_ms=tr_k[0], library_traced_ms=tr_l[0],
-                       library_ops_per_call=tr_l[1])
+                       library_ops_per_call=tr_l[1], **plans[D])
         log(f"B1 cluster solve D={D}: device ms per launch kernel {t['kernel'][0]:.5f}, library "
             f"(cholesky_ex + cholesky_solve) {t['library'][0]:.5f}, plain {t['plain'][0]:.5f}; "
             f"host us per call {t['kernel'][1]:.1f}, {t['library'][1]:.1f}, {t['plain'][1]:.1f}; "
@@ -514,7 +560,7 @@ def large_solve_phase(rng, dev) -> dict:
     main = LARGE_DS[0]
     return dict(rows[main], **{f"{k}_d{D}": rows[D][k] for D in LARGE_DS[1:]
                                for k in ("ms", "library_ms", "plain_ms", "bound_ms", "traced_ms",
-                                         "library_traced_ms")})
+                                         "library_traced_ms", "cluster", "max_active_clusters")})
 
 
 def kernel_phase(dev) -> dict:
@@ -614,7 +660,7 @@ def kernel_phase(dev) -> dict:
     # every rule planted (problems.matcher_case: ties, fully masked rows and
     # columns, invalid keypoints and landmarks), then at the three matchers'
     # shapes with random masks, ratio 0 and 0.8, mutual on and off
-    for cams, na, nb in ((2, 40, 50), (2, 37, 700), (1, 9, 12)):
+    for cams, na, nb in ((2, 40, 50), (2, 37, 700), (1, 9, 12), (2, 1100, 300)):
         args = tuple(torch.as_tensor(x, device=dev)
                      for x in problems.matcher_case(rng, cams=cams, na=na, nb=nb))
         for ratio in (0.0, 0.8):
@@ -635,27 +681,29 @@ def kernel_phase(dev) -> dict:
         t = in_turns({"kernel": lambda args=args: hamming.match_descriptors_cuda(*args),
                       "unfused": lambda args=args: unfused_match(*args),
                       "plain": lambda args=args: hamming.match_descriptors_plain(*args)})
-        tr_k = traced_ms(lambda args=args: hamming.match_descriptors_cuda(*args))
+        tr_k = one_launch(lambda args=args: hamming.match_descriptors_cuda(*args), kind)
         tr_u = traced_ms(lambda args=args: unfused_match(*args))
         a, b, va, vb, mask = args
         n_rows = va.numel()
         n_bytes = (a.numel() + b.numel()) * 4 + va.numel() + vb.numel() + n_rows * 9 + (
             0 if mask is None else mask.numel())
-        bms, by = bound(n_bytes, n_rows * b.shape[-2] * 8)
+        bnd = matcher_bound(n_bytes, n_rows * b.shape[-2], 8)
         fused[kind] = dict(max_abs_err=err, ms=t["kernel"][0], host_us=t["kernel"][1],
-                           plain_ms=t["plain"][0], library_ms=None, bound_ms=bms, bound_by=by,
+                           plain_ms=t["plain"][0], library_ms=None, **bnd,
                            unfused_ms=t["unfused"][0], unfused_host_us=t["unfused"][1],
-                           traced_ms=tr_k[0], unfused_traced_ms=tr_u[0],
-                           unfused_ops_per_call=tr_u[1])
+                           traced_ms=tr_k[0], launches_per_call=tr_k[1],
+                           unfused_traced_ms=tr_u[0], unfused_ops_per_call=tr_u[1])
         log(f"fused matcher {kind} {tuple(a.shape)}x{tuple(b.shape)} mask "
             f"{None if mask is None else tuple(mask.shape)}: bit-exact vs plain (ratio 0/0.8 x "
             f"mutual on/off; valid matches {n_valid}); device ms per call fused "
-            f"{t['kernel'][0]:.5f}, distance-matrix kernel + match() {t['unfused'][0]:.5f}, "
-            f"plain {t['plain'][0]:.5f}; host us per call {t['kernel'][1]:.1f}, "
-            f"{t['unfused'][1]:.1f}, {t['plain'][1]:.1f}; bound {bms * 1e3:.4f} us ({by}); traced "
-            f"device time per call: fused {traced_text(*tr_k)}, unfused {traced_text(*tr_u)}")
+            f"{t['kernel'][0]:.5f} ({tr_k[1]:g} launch per call), distance-matrix kernel + "
+            f"match() {t['unfused'][0]:.5f}, plain {t['plain'][0]:.5f}; host us per call "
+            f"{t['kernel'][1]:.1f}, {t['unfused'][1]:.1f}, {t['plain'][1]:.1f}; bound "
+            f"{bnd['bound_ms'] * 1e3:.4f} us ({bnd['bound_by']}, 1-bit tensor cores), popcounts "
+            f"at __popc's rate {bnd['popc_bound_ms'] * 1e3:.4f} us; traced device time per "
+            f"call: fused {traced_text(*tr_k)}, unfused {traced_text(*tr_u)}")
     out["hamming_match"] = dict(fused["map"], **{f"{k}_{f}": fused[k][f] for k in ("stereo", "temporal")
-                                                 for f in ("ms", "unfused_ms", "bound_ms",
+                                                 for f in ("ms", "host_us", "unfused_ms", "bound_ms",
                                                            "traced_ms", "unfused_traced_ms")})
     return out
 
@@ -1432,17 +1480,20 @@ def loop_kernel_phase(dev) -> dict:
     t = in_turns({"kernel": lambda: hamming.match_descriptors_cuda(*args, **kw),
                   "unfused": lambda: unfused_match(*args, **kw),
                   "plain": lambda: hamming.match_descriptors_plain(*args, **kw)})
-    tr_k = traced_ms(lambda: hamming.match_descriptors_cuda(*args, **kw))
+    tr_k = one_launch(lambda: hamming.match_descriptors_cuda(*args, **kw), "verification")
     tr_u = traced_ms(lambda: unfused_match(*args, **kw))
-    bms, by = bound((A.numel() + B.numel()) * 4 + 512 + 500 + 512 * 9, 512 * 500 * 8 * 3)
+    bnd = matcher_bound((A.numel() + B.numel()) * 4 + 512 + 500 + 512 * 9, 512 * 500, 8)
     out["verification"] = dict(max_abs_err=0, ms=t["kernel"][0], host_us=t["kernel"][1],
-                               plain_ms=t["plain"][0], unfused_ms=t["unfused"][0], bound_ms=bms,
-                               bound_by=by, traced_ms=tr_k[0], unfused_traced_ms=tr_u[0])
+                               plain_ms=t["plain"][0], unfused_ms=t["unfused"][0], **bnd,
+                               traced_ms=tr_k[0], launches_per_call=tr_k[1],
+                               unfused_traced_ms=tr_u[0])
     log(f"fused matcher at the verification shape (512,8)x(500,8), distance {DESC_DIST_LOOP}, "
         f"mutual, no gate: bit-exact vs plain ({n_valid} matches, 50 planted ties); device ms per "
-        f"call fused {t['kernel'][0]:.5f}, distance-matrix kernel + match() {t['unfused'][0]:.5f}, "
-        f"plain {t['plain'][0]:.5f}; host us {t['kernel'][1]:.1f}; bound {bms * 1e3:.4f} us ({by}); "
-        f"traced: fused {traced_text(*tr_k)}, unfused {traced_text(*tr_u)}")
+        f"call fused {t['kernel'][0]:.5f} ({tr_k[1]:g} launch per call), distance-matrix kernel + "
+        f"match() {t['unfused'][0]:.5f}, plain {t['plain'][0]:.5f}; host us {t['kernel'][1]:.1f}; "
+        f"bound {bnd['bound_ms'] * 1e3:.4f} us ({bnd['bound_by']}, 1-bit tensor cores), popcounts "
+        f"at __popc's rate {bnd['popc_bound_ms'] * 1e3:.4f} us; traced: fused "
+        f"{traced_text(*tr_k)}, unfused {traced_text(*tr_u)}")
     return out
 
 

@@ -118,19 +118,20 @@ def load() -> ctypes.CDLL:
     lib.spd_solve_chol_max_d.argtypes = []
     lib.hamming_match.restype = ci
     lib.hamming_match.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, cll, cll, ci, ci,
-                                  ctypes.c_float, ci, vp, vp, vp, vp, vp]
-    lib.hamming_match_max_words.restype = ci
-    lib.hamming_match_max_words.argtypes = []
+                                  ctypes.c_float, ci, ci, ci, vp, vp, vp, vp]
+    for name in ("hamming_match_max_words", "hamming_match_cluster", "hamming_match_chunk",
+                 "hamming_match_max_cols_per_cta"):
+        getattr(lib, name).restype = ci
+        getattr(lib, name).argtypes = []
     lib.hamming_nearest.restype = ci
     lib.hamming_nearest.argtypes = [vp, vp, vp, ci, ci, ci, ci, cll, vp]
     lib.hamming_nearest_max_words.restype = ci
     lib.hamming_nearest_max_words.argtypes = []
+    pi = ctypes.POINTER(ci)
     lib.spd_solve_cluster.restype = ci
-    lib.spd_solve_cluster.argtypes = [vp, vp, vp, vp, ci, ci, vp]
-    lib.spd_solve_cluster_workspace.restype = cll
-    lib.spd_solve_cluster_workspace.argtypes = [ci]
-    lib.spd_solve_cluster_max_d.restype = ci
-    lib.spd_solve_cluster_max_d.argtypes = []
+    lib.spd_solve_cluster.argtypes = [vp, vp, vp, ci, ci, pi, vp]
+    lib.spd_solve_cluster_max_active.restype = ci
+    lib.spd_solve_cluster_max_active.argtypes = [ci, pi, pi]
     lib.svin_cuda_error_string.restype = ctypes.c_char_p
     lib.svin_cuda_error_string.argtypes = [ci]
     _lib = lib

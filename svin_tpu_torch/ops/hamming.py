@@ -2,9 +2,11 @@
 CUDA kernel ``csrc/hamming.cu`` with its plain PyTorch version beside it),
 best-match selection with distance threshold, ratio test and mutual
 consistency, the fused matcher (hand-written CUDA kernel
-``csrc/hamming_match.cu``: distances, mask and selection in one pass) that
-the engine's three matchers run on the card, and the nearest codeword
-(hand-written CUDA kernel ``csrc/hamming_nearest.cu``: distances and the
+``csrc/hamming_match.cu``: distances, mask and selection in one launch,
+one thread-block cluster per batch element, launch plan ``match_plan``)
+that the engine's three matchers and loop verification run on the card,
+and the nearest codeword (hand-written CUDA kernel
+``csrc/hamming_nearest.cu``: distances and the
 first-index argmin in one pass) that every word assignment of the loop
 closer runs on the card.
 
@@ -27,16 +29,17 @@ from . import cuda_lib
 _POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32)
 
 
+def popcount(x: torch.Tensor) -> torch.Tensor:
+    """The set bits of each int32 word (the sign bit counts), by a 256-entry
+    byte table (exact)."""
+    lut = _POPCOUNT8.to(x.device)
+    return lut[x & 0xFF] + lut[(x >> 8) & 0xFF] + lut[(x >> 16) & 0xFF] + lut[(x >> 24) & 0xFF]
+
+
 def hamming_matrix_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(..., Na, W) x (..., Nb, W) int32 words → (..., Na, Nb) int32, by XOR
-    and a 256-entry byte popcount table (exact)."""
-    x = a[..., :, None, :] ^ b[..., None, :, :]
-    lut = _POPCOUNT8.to(x.device)
-    cnt = (
-        lut[x & 0xFF] + lut[(x >> 8) & 0xFF]
-        + lut[(x >> 16) & 0xFF] + lut[(x >> 24) & 0xFF]
-    )
-    return cnt.sum(dim=-1, dtype=torch.int32)
+    and ``popcount`` (exact)."""
+    return popcount(a[..., :, None, :] ^ b[..., None, :, :]).sum(dim=-1, dtype=torch.int32)
 
 
 def hamming_matrix_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -149,6 +152,42 @@ def nearest_codeword(desc: torch.Tensor, vocab: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"nearest_codeword: unsupported device {desc.device}")
 
 
+# The fused matcher's launch plan (csrc/hamming_match.cu): one cluster of
+# MATCH_CLUSTER CTAs per batch element, a's rows split over them, b in
+# chunks of MATCH_CHUNK columns, each column's minimum owned by one CTA in a
+# table of at most MATCH_MAX_COLS_PER_CTA entries.
+MATCH_CLUSTER = 16
+MATCH_CHUNK = 256
+MATCH_MAX_COLS_PER_CTA = 2048
+MATCH_MAX_WORDS = 8
+MATCH_MAX_NB = MATCH_CLUSTER * MATCH_MAX_COLS_PER_CTA  # 32,768: the tables' cap
+MATCH_MAX_NA = (1 << 23) - 1  # a column minimum's 32-bit key: distance over 23 bits of row
+
+
+class MatchPlan(NamedTuple):
+    rows_per_cta: int  # CTA q of MATCH_CLUSTER matches rows [q r, (q + 1) r) of a
+    cols_per_cta: int  # CTA q owns the column minima of columns [q c, (q + 1) c)
+
+
+def match_plan(Na: int, Nb: int, W: int) -> MatchPlan:
+    """The fused matcher's launch plan for (Na, W) x (Nb, W) words; raises
+    for W outside 1..8, for Na past ``MATCH_MAX_NA`` and for Nb outside
+    1..``MATCH_MAX_NB`` (the column minima live in the cluster's shared
+    memory). Na = 0 is an empty call, which launches nothing."""
+    if not 1 <= W <= MATCH_MAX_WORDS:
+        raise ValueError(f"match_descriptors_cuda: W={W} words not supported (1..{MATCH_MAX_WORDS})")
+    if not 0 <= Na <= MATCH_MAX_NA:
+        raise ValueError(f"match_descriptors_cuda: Na={Na} outside 0..{MATCH_MAX_NA} (a column "
+                         f"minimum's key keeps 23 bits of row)")
+    if not 1 <= Nb <= MATCH_MAX_NB:
+        raise ValueError(f"match_descriptors_cuda: Nb={Nb} outside 1..{MATCH_MAX_NB} (the column "
+                         f"minima of {MATCH_CLUSTER} CTAs' shared memory)")
+    return MatchPlan(rows_per_cta=max(1, -(-Na // MATCH_CLUSTER)), cols_per_cta=-(-Nb // MATCH_CLUSTER))
+
+
+_match_lib_checked = False
+
+
 class MatchResult(NamedTuple):
     idx_b: torch.Tensor  # (..., Na) matched column in B, -1 if none
     dist: torch.Tensor  # (..., Na) best distance
@@ -226,9 +265,9 @@ def match_descriptors_cuda(
     memory. ``desc_a`` (Na, W) or (B, Na, W) int32, ``desc_b`` (Nb, W)
     (shared by the batch) or (B, Nb, W), ``valid_a`` ``desc_a.shape[:-1]``
     bool, ``valid_b`` (Nb,) or (B, Nb) bool, ``mask`` ``desc_a.shape[:-1] +
-    (Nb,)`` bool or None; all contiguous on one CUDA device, W ≤ 8, Nb ≥ 1.
-    Launches on the current stream (a scratch fill and two kernels when
-    ``mutual``, one kernel when not), does not synchronise."""
+    (Nb,)`` bool or None; all contiguous on one CUDA device, W ≤ 8, 1 ≤ Nb ≤
+    ``MATCH_MAX_NB`` (``match_plan``). One kernel launch on the current
+    stream, no scratch; does not synchronise."""
     a, b, va, vb = desc_a, desc_b, valid_a, valid_b
     tensors = (a, b, va, vb) + (() if mask is None else (mask,))
     if a.dtype != torch.int32 or b.dtype != torch.int32:
@@ -245,23 +284,19 @@ def match_descriptors_cuda(
         raise ValueError(f"match_descriptors_cuda valid shapes: {tuple(va.shape)}, {tuple(vb.shape)}")
     if mask is not None and mask.shape != a.shape[:-1] + (Nb,):
         raise ValueError(f"match_descriptors_cuda mask shape {tuple(mask.shape)}")
+    plan = match_plan(Na, Nb, W)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("match_descriptors_cuda needs contiguous inputs")
-    if Nb < 1:
-        raise ValueError("match_descriptors_cuda: no descriptors to match against")
     if not all(t.is_cuda and t.device == a.device for t in tensors):
         raise ValueError(f"match_descriptors_cuda needs CUDA tensors on one device, got "
                          f"{[str(t.device) for t in tensors]}")
-    lib = cuda_lib.load()
-    if W < 1 or W > lib.hamming_match_max_words():
-        raise ValueError(f"match_descriptors_cuda: W={W} words not supported")
+    lib = _match_lib()
     batch = a.shape[0] if a.dim() == 3 else 1
     idx = torch.empty(a.shape[:-1], dtype=torch.int32, device=a.device)
     dist = torch.empty_like(idx)
     valid = torch.empty(a.shape[:-1], dtype=torch.bool, device=a.device)
     if idx.numel() == 0:
         return MatchResult(idx_b=idx, dist=dist, valid=valid)
-    col_best = torch.empty((batch, Nb) if mutual else (1,), dtype=torch.int64, device=a.device)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -269,11 +304,27 @@ def match_descriptors_cuda(
             ptr(a), ptr(b), ptr(va), ptr(vb), ctypes.c_void_p(None if mask is None else mask.data_ptr()),
             batch, Na, Nb, W, Nb * W if batched_b else 0, Nb if vb.dim() == 2 else 0,
             int(max_distance), int(ratio > 0.0), float(ratio), int(bool(mutual)),
-            ptr(col_best), ptr(idx), ptr(dist), ptr(valid), ctypes.c_void_p(stream),
+            plan.rows_per_cta, plan.cols_per_cta, ptr(idx), ptr(dist), ptr(valid),
+            ctypes.c_void_p(stream),
         )
     cuda_lib.check(lib, err, "hamming_match")
     match_descriptors_cuda.launches += 1
     return MatchResult(idx_b=idx, dist=dist, valid=valid)
+
+
+def _match_lib():
+    """The kernel library, its matcher's constants checked once against
+    ``match_plan``'s."""
+    global _match_lib_checked
+    lib = cuda_lib.load()
+    if not _match_lib_checked:
+        got = (lib.hamming_match_cluster(), lib.hamming_match_chunk(),
+               lib.hamming_match_max_cols_per_cta(), lib.hamming_match_max_words())
+        want = (MATCH_CLUSTER, MATCH_CHUNK, MATCH_MAX_COLS_PER_CTA, MATCH_MAX_WORDS)
+        if got != want:
+            raise RuntimeError(f"csrc/hamming_match.cu's plan constants {got} != ops/hamming.py's {want}")
+        _match_lib_checked = True
+    return lib
 
 
 match_descriptors_cuda.launches = 0

@@ -14,7 +14,10 @@ and one thread-block cluster up to 1024, vs float32 ``cholesky_ex`` +
 ``cholesky_solve``) on Jacobi-equilibrated SPD systems: relative residual ≤
 1e-4 and relative distance to the plain solution ≤ 1e-3; a system that does
 not factor gives all NaN in both; float64 and D > 1024 take the library
-route and equal the plain solve. One pipelined ``backend_step`` makes at
+route and equal the plain solve. The fused matcher is one kernel launch
+and no memset per call (from a ``torch.profiler`` trace), neither cluster
+kernel's wrapper synchronises with the host, and the card holds at least
+one cluster of each solve plan the paths use. One pipelined ``backend_step`` makes at
 most 4 host synchronisations (its fetch and the marginalization's three
 ``eigh``). The backend step with kernels vs with plain versions:
 identical matches (the matcher is exact), cost within 1% and positions
@@ -122,10 +125,11 @@ def test_solve_kernel_batched_and_refusals(dev):
         tham.hamming_matrix(torch.zeros((4, 8), device=dev), torch.zeros((4, 8), device=dev))
 
 
-@pytest.mark.parametrize("D", [330, 384, 1024])
+@pytest.mark.parametrize("D", [321, 330, 352, 384, 512, 768, 1020, 1024])
 def test_cluster_solve_matches_plain(dev, D):
     """Past one block's shared memory (D > 320) up to the reference kernel's
-    1024, solve_spd runs the cluster kernel."""
+    1024, solve_spd runs the cluster kernel (8 CTAs to D = 864, 16 past it;
+    1020 ends in a partial block row)."""
     rng = np.random.default_rng(D)
     H, b = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in _equilibrated_spd(rng, D))
     counts = (tsolve.spd_solve_chol.launches, tsolve.spd_solve_cluster.launches,
@@ -212,10 +216,11 @@ def test_fused_matcher_matches_plain(dev, kind):
             assert g.dtype == w.dtype and torch.equal(g, w), (kind, ratio, mutual)
 
 
-@pytest.mark.parametrize("nb", [1, 12, 700])
+@pytest.mark.parametrize("nb", [1, 12, 700, tham.MATCH_MAX_NB])
 def test_fused_matcher_ragged_and_batched_b(dev, nb):
-    """Shapes off the main path: a one-column table, a table wider than one
-    column chunk (512), and a batch of distinct tables and valid flags."""
+    """Shapes off the main path: a one-column table, tables wider than one
+    column chunk (256), the largest table the cluster's column minima hold,
+    and a batch of distinct tables and valid flags."""
     rng = np.random.default_rng(nb)
     a, b, va, vb, mask = (torch.as_tensor(x, device=dev)
                           for x in problems.matcher_case(rng, cams=2, na=37, nb=max(nb, 12)))
@@ -228,6 +233,73 @@ def test_fused_matcher_ragged_and_batched_b(dev, nb):
             want = tham.match_descriptors_plain(*args, ratio=ratio)
             for g, w in zip(got, want):
                 assert torch.equal(g, w), (nb, ratio)
+
+
+@pytest.mark.parametrize("na,nb", [(513, 300), (1100, 300), (4000, 700)])
+def test_fused_matcher_past_one_pass_per_cta(dev, na, nb):
+    """More rows than a cluster takes in one 32-row pass per CTA (Na > 512):
+    each CTA keeps its rows' results in device memory across passes and
+    reads them back for the mutual check."""
+    rng = np.random.default_rng(na)
+    args = tuple(torch.as_tensor(x, device=dev) for x in problems.matcher_case(rng, cams=2, na=na, nb=nb))
+    assert tham.match_plan(na, nb, 8).rows_per_cta > 32
+    for mask in (args[4], None):
+        for ratio in (0.0, 0.8):
+            for mutual in (True, False):
+                got = tham.match_descriptors_cuda(*args[:4], mask, ratio=ratio, mutual=mutual)
+                want = tham.match_descriptors_plain(*args[:4], mask, ratio=ratio, mutual=mutual)
+                assert bool(want.valid.any())
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (na, ratio, mutual, mask is None)
+
+
+def test_cluster_plans_schedule_on_the_card(dev):
+    """The card holds at least one cluster of each plan the paths use (8
+    CTAs at D = 330 and 768, 16 at D = 1024): cudaOccupancyMaxActiveClusters."""
+    for D, size in ((330, 8), (768, 8), (1024, 16)):
+        assert tsolve.cluster_plan(D).cluster == size
+        assert tsolve.cluster_max_active(D, dev) >= 1, D
+
+
+def _card_ops(fn, tries=3):
+    """The device operations of one call of ``fn`` from a torch.profiler
+    trace (a trace can miss device events: retried while it shows none)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            return ops
+    return []
+
+
+def test_fused_matcher_is_one_kernel_and_no_memset(dev):
+    args = problems.matcher_inputs("map", np.random.default_rng(4), dev)
+    tham.match_descriptors_cuda(*args)
+    torch.cuda.synchronize()
+    ops = _card_ops(lambda: tham.match_descriptors_cuda(*args))
+    names = [e.name for e in ops]
+    assert len(ops) == 1 and "match_kernel" in names[0], names
+    assert not any("emset" in n for n in names)
+
+
+def test_cluster_kernels_never_wait_on_the_host(dev):
+    """Neither wrapper synchronises with the host (sync debug mode "error")."""
+    rng = np.random.default_rng(6)
+    args = problems.matcher_inputs("map", rng, dev)
+    H, b = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in _equilibrated_spd(rng, 1024))
+    tham.match_descriptors_cuda(*args)
+    tsolve.spd_solve_cluster(H, b)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tham.match_descriptors_cuda(*args)
+        tsolve.solve_spd(H, b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 def _small_case(dev):

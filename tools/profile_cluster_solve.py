@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Which phase takes the time of B1's cluster kernel, on the card.
 
-    python3 tools/profile_cluster_solve.py [D ...]     # default 330 384 512 768 1024
+    python3 tools/profile_cluster_solve.py [D ...]     # default 330 1024
 
 Compiles ``svin_tpu_torch/csrc/spd_solve_cluster.cu`` a second time with
 ``-DSVIN_PHASE_TIMES`` into ``svin_tpu_torch/_build/libspd_cluster_phases.so``
@@ -10,10 +10,14 @@ then sums SM cycles (``clock64``) per phase of the factorization. For each
 D it solves a Jacobi-equilibrated SPD system 20 times and prints the median
 cycles of each phase with its share, beside the launch's device time from
 CUDA events (the instrumented build; the phases' sum over that time gives
-the SM clock the cycles ran at). The phases: staging H into the workspace,
-the diagonal block (warp 0), the panel rows, the cluster barriers (the
-wait there includes the other CTAs' imbalance), the panel copy into shared
-memory, the trailing tiles (the leader's share), the back substitution.
+the SM clock the cycles ran at). The cycles are those of the CTA of rank 0
+(with ``ops/solve.py::cluster_plan``'s assignment, the CTA holding the last
+block row: the most trailing work). The phases: staging H into its shared
+memory, the diagonal block (factor and inverse, where it owns the row),
+the panel solve (Linv and y_k fetched through DSMEM, L_ik = A_ik Linv^T),
+the cluster barriers (the wait there includes the other CTAs' imbalance),
+the panel tiles pulled from other CTAs through DSMEM, the trailing tiles,
+the back substitution.
 
 Needs one CUDA card and ``nvcc``; exits nonzero without them.
 """
@@ -28,9 +32,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from svin_tpu_torch.ops import cuda_lib  # noqa: E402
+from svin_tpu_torch.ops import cuda_lib, solve  # noqa: E402
 
-PHASES = ("staging", "diagonal block", "panel rows", "cluster barriers", "panel copy",
+PHASES = ("staging", "diagonal block", "panel solve", "cluster barriers", "panel pulls",
           "trailing tiles", "back substitution")
 LIB = os.path.join(cuda_lib.BUILD_DIR, "libspd_cluster_phases.so")
 
@@ -46,9 +50,7 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(LIB)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.spd_solve_cluster.restype = ci
-    lib.spd_solve_cluster.argtypes = [vp, vp, vp, vp, ci, ci, vp]
-    lib.spd_solve_cluster_workspace.restype = ctypes.c_longlong
-    lib.spd_solve_cluster_workspace.argtypes = [ci]
+    lib.spd_solve_cluster.argtypes = [vp, vp, vp, ci, ci, ctypes.POINTER(ci), vp]
     lib.spd_solve_cluster_phase_cycles.restype = ci
     lib.spd_solve_cluster_phase_cycles.argtypes = [vp]
     return lib
@@ -58,7 +60,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("profile_cluster_solve: no CUDA device", file=sys.stderr)
         return 1
-    Ds = [int(a) for a in argv] or [330, 384, 512, 768, 1024]
+    Ds = [int(a) for a in argv] or [330, 1024]
     dev = torch.device("cuda")
     lib = build()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -72,14 +74,15 @@ def main(argv) -> int:
         H = torch.as_tensor(H * np.outer(s, s), dtype=torch.float32, device=dev)
         b = torch.as_tensor(rng.standard_normal(D) * s, dtype=torch.float32, device=dev)
         x = torch.empty_like(b)
-        work = torch.empty(lib.spd_solve_cluster_workspace(D), dtype=torch.float32, device=dev)
+        plan = solve.cluster_plan(D)
+        plan_ints = (ctypes.c_int * len(plan.as_ints()))(*plan.as_ints())
         stream = torch.cuda.current_stream().cuda_stream
         cycles, ms = [], []
         for _ in range(20):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
-            err = lib.spd_solve_cluster(H.data_ptr(), b.data_ptr(), x.data_ptr(), work.data_ptr(),
-                                        1, D, stream)
+            err = lib.spd_solve_cluster(H.data_ptr(), b.data_ptr(), x.data_ptr(), 1, D, plan_ints,
+                                        stream)
             e1.record()
             torch.cuda.synchronize()
             if err:
@@ -94,7 +97,8 @@ def main(argv) -> int:
         total = sum(med)
         t_ms = statistics.median(ms)
         print(f"D={D}: {t_ms:.4f} ms per launch (events), {total:.0f} cycles in the phases "
-              f"({total / (t_ms * 1e6):.3f} GHz), {(D + 31) // 32} panels, residual {res:.2e}")
+              f"({total / (t_ms * 1e6):.3f} GHz), {plan.nt} panels, cluster {plan.cluster}, "
+              f"{plan.ntiles} tiles and {plan.ring} ring slots per CTA, residual {res:.2e}")
         for name, c in zip(PHASES, med):
             print(f"  {name:18s} {c:10.0f} cycles {100 * c / total:5.1f}%")
     return 0
