@@ -3,8 +3,8 @@
 its plain PyTorch version on the card, then drive the VIO backend's
 per-frame step, the engine (serial and pipelined), the loop closer (to past
 2,048 keyframes), the offline app, global bundle adjustment (to the Cave
-shape) and the flagship step at the shipped shapes and check what comes
-out.
+shape), the flagship step and the sharded solvers over processes at the
+shipped shapes and check what comes out.
 
     python3 chip_smoke.py
 
@@ -207,9 +207,32 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
    within TRACKS_PCG_TOL_M, no kernel launched; ms per GN step (median of
    3, in turns), traced device ms and operations per GN step, device-busy
    share and peak memory per run. Then the card's float32 track solve at
-   K = 256, L = 8,192 against the port's float64 one on the CPU. Last the
+   K = 256, L = 8,192 against the port's float64 one on the CPU. Then the
    flagship step (``svin_tpu_torch.entry``): a finite cost below the
    start's, median ms.
+
+10. Multi-process: the sharded solvers on ``torch.distributed``, each rank
+   a worker process of this script (``--mp-worker``), first one NCCL rank
+   (NCCL refuses two ranks on one GPU), then two gloo ranks sharing the
+   card (gloo reduces CUDA tensors through the host). Every rank, each
+   drive with launch counts from 0 just before and read just after:
+   ``make_sharded_ba`` and ``make_sharded_ba_bucketed`` at phase 8's K = 64
+   problem (the cost falls, poses within BA_KERNEL_TOL_M of the local solve
+   on the card and BA_POSE_TOL_M of the truth, the cluster kernel exactly
+   once per GN step); ``make_sharded_ba_tracks`` and ``make_sharded_ba_pcg``
+   (pose-major index) at phase 9's Cave shape (within TRACKS_PCG_TOL_M of
+   the local solves, no kernel; with NCCL one tracks GN step under the sync
+   debug mode that raises); ``make_sharded_posegraph`` and
+   ``make_sharded_posegraph_pcg`` on the JAX tests' drifted graph (the far
+   end within 0.15 m of the truth, within SCALABLE_PATH_TOL_M of the local
+   solve); with two ranks the cooperative mapping of
+   tests/test_runtime.py:203 (16 merged poses, >= 8 shared pairs, rank 1's
+   drift below 0.3x the injected one, the fused matcher launched); and
+   ``dryrun_multichip``. The all_reduce calls per drive are counted; one
+   all_reduce of the tracks CG vector's (2048, 6) shape timed alone
+   (``device_ms``); ms per GN step of the bucketed BA and the Cave-shape
+   tracks, sharded and local in turns (MP_ROUNDS each). A worker that fails or outlives MP_TIMEOUT_S
+   fails the run.
 
 The second-to-last line of standard output is the kernels' JSON record; the
 last is ``{"ok": true, "device": {...}}``.
@@ -2507,6 +2530,291 @@ def entry_phase(dev) -> dict:
     return launches
 
 
+# ------------------------------------------------------- the multi-process phase
+# Two topologies on the one card: one NCCL rank (NCCL refuses two ranks on one
+# GPU), then two gloo ranks sharing it (gloo reduces CUDA tensors through the
+# host). Each rank is a worker process of this script (``--mp-worker``).
+MP_TOPOLOGIES = (("nccl", 1), ("gloo", 2))
+MP_TIMEOUT_S = 420
+MP_ROUNDS = 5  # timed runs per solver, sharded and local in turns
+# the JAX tests' cooperative mapping (tests/test_runtime.py:203) and its bounds
+COOP = dict(K=8, L_window=32, iters=10, cg_iters=32)
+COOP_DRIFT_FACTOR, COOP_MIN_PAIRS = 0.3, 8
+DRIFT_AFTER_M = 0.15  # the JAX pose-graph tests' bound at the far end (test_dist_posegraph.py:15)
+
+
+def drifted_graph(dev, N=40, drift_per_step=(0.02, 0.01, 0.0), yaw_drift=0.004):
+    """tests/test_loopclosure.py::_make_drifted_graph rebuilt with numpy (a
+    circle of radius 3 m, odometry edges from the drifted poses, one exact
+    loop edge of weight 5; 64 node and 192 edge slots), float32 on ``dev``:
+    (nodes, edges, true positions, N)."""
+    from svin_tpu_torch.loopclosure import PoseGraphEdges, PoseGraphNodes
+    from svin_tpu_torch.loopclosure.posegraph import ypr_to_matrix_np
+
+    k = np.arange(N)
+    t_gt = 3.0 * np.stack([np.cos(2 * np.pi * k / N), np.sin(2 * np.pi * k / N),
+                           0.1 * np.sin(4 * np.pi * k / N)], 1)
+    yaw_gt = 2 * np.pi * k / N + np.pi / 2
+    p_od = t_gt + k[:, None] * np.asarray(drift_per_step)
+    yaw_od = yaw_gt + k * yaw_drift
+    cap, E = 64, 192
+
+    def rel(i, j, p, yaw):
+        return ypr_to_matrix_np(yaw[i], 0.0, 0.0).T @ (p[j] - p[i]), yaw[j] - yaw[i]
+
+    rows = [(i - 1, i, *rel(i - 1, i, p_od, yaw_od), 1.0, False) for i in range(1, N)]
+    rows.append((0, N - 1, *rel(0, N - 1, t_gt, yaw_gt), 5.0, True))
+    ii, jj, ts, ys, ws, il = (list(x) for x in zip(*rows))
+    pad = E - len(rows)
+    f32 = dict(dtype=torch.float32, device=dev)
+    pz = lambda a, n=cap: np.concatenate([a, np.zeros((n - len(a),) + np.shape(a)[1:])])  # noqa: E731
+    nodes = PoseGraphNodes(p=torch.tensor(pz(p_od), **f32), yaw=torch.tensor(pz(yaw_od), **f32),
+                           pitch=torch.zeros(cap, **f32), roll=torch.zeros(cap, **f32),
+                           valid=torch.arange(cap, device=dev) < N)
+    edges = PoseGraphEdges(
+        i=torch.tensor(ii + [0] * pad, device=dev), j=torch.tensor(jj + [0] * pad, device=dev),
+        t_ij=torch.tensor(pz(np.stack(ts), E), **f32), yaw_ij=torch.tensor(pz(np.array(ys), E), **f32),
+        weight=torch.tensor(ws + [1.0] * pad, **f32),
+        is_loop=torch.tensor(il + [False] * pad, device=dev),
+        valid=torch.arange(E, device=dev) < len(rows))
+    return nodes, edges, t_gt, N
+
+
+class CollectiveCount:
+    """Counts ``torch.distributed.all_reduce`` calls inside the block."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.n, self._dist, self._orig = 0, dist, dist.all_reduce
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self._orig(*a, **kw)
+
+        dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._dist.all_reduce = self._orig
+
+
+def mp_rank(backend: str, rank: int, world: int, rendezvous: str, dev) -> dict:
+    """One rank of the multi-process phase on ``dev``: the sharded solvers
+    through ``torch.distributed`` (``backend``, ``world`` ranks, a
+    ``file://`` rendezvous), each main-path drive with launch counts from 0
+    just before and read just after, held to the local solver on the same
+    problem; ms per GN step, sharded and local in turns. Raises at a failed
+    gate. Returns {"lines", "launches", "ms"}."""
+    import torch.distributed as dist
+
+    from svin_tpu_torch import parallel as tpar
+    from svin_tpu_torch.apps.run_distributed_mapping import run as coop_run
+    from svin_tpu_torch.entry import dryrun_multichip
+    from svin_tpu_torch.loopclosure import optimize_4dof
+
+    tpar.initialize_distributed(f"file://{rendezvous}", world, rank, device=dev,
+                                backend=None if backend == "nccl" else backend)
+    mesh = tpar.make_process_mesh(device=dev)
+    mesh.psum(torch.zeros(1, device=dev))  # communicator set-up, outside every window below
+    torch.cuda.synchronize()
+    tag = f"[{backend}, rank {rank} of {world}]"
+    out = {"lines": [], "launches": {k: 0 for k in KERNELS}, "ms": {}}
+
+    def say(line, ok=True):
+        out["lines"].append(f"{tag} {line}")
+        if not ok:
+            raise AssertionError(f"{tag} {line}")
+
+    def drive(fn):
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        got = read_counts()
+        for k in KERNELS:
+            out["launches"][k] += got[k]
+        return res, {k: v for k, v in got.items() if v}
+
+    def in_turns_ms(name, fns: dict, n_gn: int) -> None:
+        ms = {k: [] for k in fns}
+        for _ in range(MP_ROUNDS):
+            for k, fn in fns.items():
+                ms[k] += timed_ms(fn, n=1)
+        out["ms"][name] = {k: [x / n_gn for x in v] for k, v in ms.items()}
+        say(f"{name}: ms per GN step " + ", ".join(
+            f"{k} median {statistics.median(v) / n_gn:.3f} ({[round(x / n_gn, 3) for x in v]})"
+            for k, v in ms.items()))
+
+    # one all_reduce alone, at the tracks CG matvec's (K, 6) float32 shape
+    v = torch.zeros(CAVE[0], 6, device=dev)
+    ms, us = device_ms(lambda: mesh.psum(v))
+    out["ms"]["all_reduce"] = {"device_ms": ms, "host_us": us}
+    say(f"one all_reduce of a ({CAVE[0]}, 6) float32 tensor: device {ms:.5f} ms, host {us:.1f} "
+        f"µs per call (200 back to back)")
+
+    # (a) the sharded dense BA at the JAX builder's defaults: the cluster kernel
+    K = BA_K[0]
+    truth, start, rig = ba_problem(K, dev)
+    L = start.lm.shape[0]
+    ps, bstart = tpar.partition_problem(start, world), tpar.bucket_problem(start)
+    b_step, b_shard = tpar.make_sharded_ba_bucketed(mesh, rig, K, L, iters=BA_ITERS)
+    b_local = b_shard(bstart)
+    _, cost0 = tpar.make_sharded_ba_bucketed(mesh, rig, K, L, iters=0)[0](b_local)
+    f_step, f_shard = tpar.make_sharded_ba(mesh, rig, K, L, ps.obs_uv.shape[0], iters=BA_ITERS)
+    f_local = f_shard(ps)
+    for name, run, ref in (
+            ("make_sharded_ba", lambda: f_step(f_local),
+             lambda: tpar.ba_solve_local(ps, rig, iters=BA_ITERS)),
+            ("make_sharded_ba_bucketed", lambda: b_step(b_local),
+             lambda: tpar.ba_solve_bucketed(bstart, rig, iters=BA_ITERS))):
+        with CollectiveCount() as cc:
+            (res, cost), got = drive(run)
+        want, _ = ref()
+        d = float((res.pose_r - want.pose_r).abs().max())
+        err = float((res.pose_r - truth.pose_r).abs().max())
+        say(f"{name} [K={K}, L={L}, D={6 * K}, {BA_ITERS} GN]: cost {float(cost0):.4f} -> "
+            f"{float(cost):.3e}, poses within {d * 1e3:.5f} mm of the local solve on the card and "
+            f"{err * 1e3:.4f} mm of the truth; {cc.n} all_reduce; launches {got}",
+            float(cost) < float(cost0) and d < BA_KERNEL_TOL_M and err < BA_POSE_TOL_M
+            and got.get("spd_solve_cluster") == BA_ITERS)
+    in_turns_ms(f"bucketed BA K={K}", {
+        "sharded": lambda: b_step(b_local),
+        "local": lambda: tpar.ba_solve_bucketed(bstart, rig, iters=BA_ITERS)}, BA_ITERS)
+
+    # (b) the track and PCG solvers at the Cave shape (no kernel)
+    Kc, Lc, span, block = CAVE
+    _, cstart, crig = cave_problem(Kc, Lc, span, torch.float32, dev)
+    tp1, meta1, _ = tpar.tracks_from_problem(cstart, span=span, block=block)
+    tpw, metaw, _ = tpar.tracks_from_problem(cstart, span=span, block=block, n_shards=world)
+    t_step, t_shard = tpar.make_sharded_ba_tracks(mesh, crig, metaw, iters=CAVE_GN,
+                                                  cg_iters=CAVE_CG)
+    t_local = t_shard(tpw)
+    bp = tpar.bucket_problem(cstart)
+    p_step, (p_shard, perm_shard) = tpar.make_sharded_ba_pcg(
+        mesh, crig, Kc, Lc, iters=CAVE_GN, cg_iters=CAVE_CG, use_pose_perm=True)
+    p_local, p_perm = p_shard(bp), perm_shard(tpar.sharded_pose_major_index(bp, Kc, world))
+    perm1 = tpar.pose_major_index(bp.obs_pose, bp.obs_valid, Kc)
+    _, c_cost0 = tpar.ba_solve_tracks(tp1, crig, meta1, iters=0)
+    for name, run, ref in (
+            ("make_sharded_ba_tracks", lambda: t_step(t_local),
+             lambda: tpar.ba_solve_tracks(tp1, crig, meta1, iters=CAVE_GN, cg_iters=CAVE_CG)),
+            ("make_sharded_ba_pcg (pose-major)", lambda: p_step(p_local, p_perm),
+             lambda: tpar.ba_solve_pcg(bp, crig, iters=CAVE_GN, cg_iters=CAVE_CG,
+                                       pose_perm=perm1))):
+        with CollectiveCount() as cc:
+            (res, cost), got = drive(run)
+        want, _ = ref()
+        d = float((res.pose_r - want.pose_r).abs().max())
+        say(f"{name} [Cave: K={Kc}, L={Lc}, {CAVE_GN} GN x {CAVE_CG} CG]: cost "
+            f"{float(c_cost0):.2f} -> {float(cost):.4f}, poses within {d * 1e3:.5f} mm of the "
+            f"local solve on the card; {cc.n} all_reduce; launches {got}",
+            float(cost) < float(c_cost0) and d < TRACKS_PCG_TOL_M and not got)
+    if backend == "nccl":
+        one_step, _ = tpar.make_sharded_ba_tracks(mesh, crig, metaw, iters=1, cg_iters=CAVE_CG)
+        one_step(t_local)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            one_step(t_local)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        say("one sharded tracks GN step under sync-debug \"error\": no host sync")
+    in_turns_ms("tracks at the Cave shape", {
+        "sharded": lambda: t_step(t_local),
+        "local": lambda: tpar.ba_solve_tracks(tp1, crig, meta1, iters=CAVE_GN, cg_iters=CAVE_CG)},
+        CAVE_GN)
+
+    # (c) the pose graphs: the JAX tests' drifted graph
+    nodes, edges, t_gt, n = drifted_graph(dev)
+    edges_p = tpar.pad_edges_for_mesh(edges, world)
+    N, E = nodes.p.shape[0], edges_p.i.shape[0]
+    for name, step, shard, ref in (
+            ("make_sharded_posegraph", *tpar.make_sharded_posegraph(mesh, N, E, iters=10),
+             lambda: optimize_4dof(nodes, edges, 1, iters=10)),
+            ("make_sharded_posegraph_pcg",
+             *tpar.make_sharded_posegraph_pcg(mesh, N, E, iters=10, cg_iters=64),
+             lambda: tpar.optimize_4dof_pcg(nodes, edges, 1, iters=10, cg_iters=64))):
+        local_edges = shard(edges_p)
+        (nd, cost), got = drive(lambda: step(nodes, local_edges, 1))
+        d = float((nd.p - ref().p)[:n].abs().max())
+        err = float(np.linalg.norm(nd.p[n - 1].cpu().numpy() - t_gt[n - 1]))
+        say(f"{name} [N={N}, E={E}, 10 GN]: far end {err:.4f} m from the truth, within "
+            f"{d * 1e3:.4f} mm of the local solve; cost {float(cost):.3e}; launches {got}",
+            err < DRIFT_AFTER_M and d < SCALABLE_PATH_TOL_M and bool(torch.isfinite(cost)))
+
+    # (d) cooperative mapping (two ranks only): the fused matcher associates
+    if world > 1:
+        s, got = drive(lambda: coop_run(**COOP, backend=backend, device=dev))
+        ok = (s["merged_poses"] == 2 * COOP["K"] and s["shared_pairs"] >= COOP_MIN_PAIRS
+              and got.get("hamming_match", 0) > 0)
+        if rank == 1:
+            ok = ok and s["residual_drift_m"] < COOP_DRIFT_FACTOR * s["injected_drift_m"]
+        say(f"cooperative mapping {COOP}: {s}; launches {got}", ok)
+
+    # (e) the dry run
+    costs, got = drive(lambda: dryrun_multichip(world, device=dev))
+    say(f"dryrun_multichip({world}): {costs}; launches {got}",
+        all(np.isfinite(v) for v in costs.values()))
+    dist.destroy_process_group()
+    return out
+
+
+def mp_worker(backend: str, rank: str, world: str, rendezvous: str, out_path: str) -> int:
+    """``chip_smoke.py --mp-worker``: one rank, its record written to
+    ``out_path`` as JSON."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)  # the gloo ranks share the card
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda_lib.load()
+    res = mp_rank(backend, int(rank), int(world), rendezvous, dev)
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def multiprocess_phase(dev) -> dict:
+    """The sharded solvers on ``torch.distributed``, one NCCL rank, then two
+    gloo ranks sharing the card, each rank a worker process (``mp_rank``);
+    a worker that fails or outlives MP_TIMEOUT_S fails the run. Logs every
+    rank's lines; returns the launches summed over the ranks."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend, world in MP_TOPOLOGIES:
+            rdv = os.path.join(tmp, f"rendezvous_{backend}")
+            paths = [os.path.join(tmp, f"{backend}_{r}.json") for r in range(world)]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mp-worker",
+                                       backend, str(r), str(world), rdv, paths[r]])
+                     for r in range(world)]
+            try:
+                codes = [p.wait(timeout=max(1.0, MP_TIMEOUT_S - (time.perf_counter() - t0)))
+                         for p in procs]
+            except subprocess.TimeoutExpired:
+                codes = None
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            if codes is None or any(codes):
+                raise AssertionError(f"multi-process phase [{backend} x {world}]: workers "
+                                     f"{'outlived ' + str(MP_TIMEOUT_S) + ' s' if codes is None else 'exited ' + str(codes)}")
+            for path in paths:
+                with open(path) as f:
+                    rec = json.load(f)
+                for line in rec["lines"]:
+                    log(line)
+                for k in KERNELS:
+                    launches[k] += rec["launches"][k]
+            log(f"multi-process phase [{backend} x {world}]: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
@@ -2549,14 +2857,16 @@ def main() -> int:
     ba_launches = phase("global BA", global_ba_phase, dev)
     cave_launches = phase("global BA, Cave shape", cave_ba_phase, dev)
     entry_launches = phase("flagship step", entry_phase, dev)
+    mp_launches = phase("multi-process", multiprocess_phase, dev)
     log(f"wall seconds per phase: {phase_s}")
     launches = {k: launches[k] + engine_launches[k] + large_launches[k] + pipelined_launches[k]
                 + loop_launches[k] + drive_launches[k] + ba_launches[k] + cave_launches[k]
-                + entry_launches[k] for k in KERNELS}
+                + entry_launches[k] + mp_launches[k] for k in KERNELS}
     closer_launches = {k: closer_launches[k] + drive_launches[k] for k in KERNELS}
     log(f"launches summed over the backend-step, engine (S=8 and S=22), pipelined, "
         f"loop-closure, closer past 512, global BA (K <= 170 and the Cave shape) and "
-        f"flagship-step paths: {launches} (S=22 engine: {large_launches}; loop-closure phase, "
+        f"flagship-step and multi-process paths: {launches} (S=22 engine: {large_launches}; "
+        f"multi-process, every rank: {mp_launches}; loop-closure phase, "
         f"the apps' engine included: {loop_launches}; the loop closer alone, the "
         f"{DRIVE[0]}-keyframe drive included: {closer_launches}; global BA: {ba_launches}; "
         f"flagship step: {entry_launches})")
@@ -2571,10 +2881,12 @@ def main() -> int:
          "source": "svin_tpu_torch/csrc/spd_solve_cluster.cu",
          "replaces": "svin_tpu/ops/solve.py:59", "launches": launches["spd_solve_cluster"],
          "ba_launches": ba_launches["spd_solve_cluster"],
+         "mp_launches": mp_launches["spd_solve_cluster"],
          "shape": f"D={LARGE_DS[0]}", **timings["spd_solve_cluster"]},
         {"name": "hamming_match", "route": "cuda", "source": "svin_tpu_torch/csrc/hamming_match.cu",
          "replaces": "svin_tpu/ops/hamming.py:44", "launches": launches["hamming_match"],
          "loop_launches": closer_launches["hamming_match"],
+         "mp_launches": mp_launches["hamming_match"],
          "shape": f"(2,{K},8)x(512,8), mask (2,{K},512)", **timings["hamming_match"],
          **{f"verification_{k}": v for k, v in ver.items() if k != "max_abs_err"}},
         {"name": "hamming_matrix", "route": "cuda", "source": "svin_tpu_torch/csrc/hamming.cu",
@@ -2596,4 +2908,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp-worker"]:
+        sys.exit(mp_worker(*sys.argv[2:]))
     sys.exit(main())

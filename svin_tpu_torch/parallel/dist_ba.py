@@ -1,19 +1,25 @@
-"""Global bundle adjustment on one device: the flat and the bucketed
-observation layouts, each solved by Gauss-Newton on the Schur-reduced
-camera system.
+"""Global bundle adjustment: the flat and the bucketed observation layouts,
+each solved by Gauss-Newton on the Schur-reduced camera system, on one
+device or sharded over a process mesh.
 
-Counterpart of the single-device half of the JAX package's
-``parallel/dist_ba.py`` (its sharded step factories, ``make_sharded_ba`` and
-``make_sharded_ba_bucketed``, are not ported). Each GN iteration assembles
-the normal equations with ``index_add_`` (the JAX package's segment sums,
-and in the bucketed layout its one-hot matmuls, which exist to keep scatters
-off the TPU), eliminates the 3x3 landmark blocks, forms the reduced system
-H = Hpp − Wᵀ Hll⁻¹ W of D = 6K as one (D, 3L) x (3L, D) matmul, damps it
-and solves it with ``solve`` (``ops.solve.solve_spd`` by default: a float32
-CUDA system of D ≤ 1024 goes to a hand-written kernel, the one-block kernel
-to D = 320 and the cluster kernel past it; see its route counts). The GN
-loops make no host synchronisation. On CUDA the entry points run float32
-products in full float32 (TF32 off).
+Counterpart of the JAX package's ``parallel/dist_ba.py``. Each GN iteration
+assembles the normal equations with ``index_add_`` (the JAX package's
+segment sums, and in the bucketed layout its one-hot matmuls, which exist to
+keep scatters off the TPU), eliminates the 3x3 landmark blocks, forms the
+reduced system H = Hpp − Wᵀ Hll⁻¹ W of D = 6K as one (D, 3L) x (3L, D)
+matmul, damps it and solves it with ``solve`` (``ops.solve.solve_spd`` by
+default: a float32 CUDA system of D ≤ 1024 goes to a hand-written kernel,
+the one-block kernel to D = 320 and the cluster kernel past it; see its
+route counts). The GN loops make no host synchronisation. On CUDA the entry
+points run float32 products in full float32 (TF32 off).
+
+Sharded (``make_sharded_ba``, ``make_sharded_ba_bucketed``): landmarks and
+their observations are cut into one block per rank of a
+``runtime.ProcessMesh``, poses are replicated. Each rank eliminates its
+landmarks; the undamped reduced system H, b and the cost are summed over
+the mesh (``ProcessMesh.psum``, three ``all_reduce`` per GN iteration where
+the JAX package has three ``psum``), then every rank damps and solves the
+same system and back-substitutes its own landmarks.
 
 ``partition_problem`` and ``bucket_problem`` are host numpy re-layouts, as
 in the JAX package; their tensors land on the problem's device.
@@ -21,7 +27,7 @@ in the JAX package; their tensors land on the problem's device.
 from __future__ import annotations
 
 import logging
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +38,7 @@ from ..kinematics import quaternion as quat
 from ..ops.linalg3 import inv3x3
 from ..ops.solve import solve_spd
 from ..pipeline.vio import _float32_matmuls
+from .runtime import ProcessMesh, _host, shard
 
 
 class GlobalMapProblem(NamedTuple):
@@ -91,9 +98,12 @@ def _reproj(r_WS, q_WS, fixed, p_W, lm_ok, uv, ci, ok, rig: RigParams):
 
 def _reproj_eval(prob: GlobalMapProblem, rig: RigParams, lm_base: int = 0):
     """(r, Jp, Jl, local landmark index) per flat observation; ``lm_base``
-    is the global index of the problem's first landmark."""
+    is the global index of the problem's first landmark. Invalid
+    observations (a shard's padding, whose landmark lies on shard 0) take
+    local landmark 0 and add zeros."""
     pi, ci = prob.obs_pose.long(), prob.obs_cam.long()
     li = prob.obs_lm.long() - lm_base
+    li = torch.where(prob.obs_valid, li, torch.zeros_like(li))
     r, Jp, Jl = _reproj(prob.pose_r[pi], prob.pose_q[pi], prob.pose_fixed[pi], prob.lm[li],
                         prob.lm_valid[li], prob.obs_uv, ci, prob.obs_valid, rig)
     return r, Jp, Jl, li
@@ -121,20 +131,26 @@ def _local_normal_eqs(prob: GlobalMapProblem, rig: RigParams, lm_base: int, K: i
     return Hpp, bp, Hll, bl, Wf, _cost(r)
 
 
-def _reduced_solve(Hpp, bp, Hll, bl, Wf, lm_valid, pose_fixed, lam: float, solve: Callable):
-    """Eliminate the landmarks, solve the damped reduced camera system with
-    ``solve``, back-substitute: (dx (K,6), dl (L,3))."""
+def _eliminate(Hpp, bp, Hll, bl, Wf, lm_valid, lam: float):
+    """Eliminate the landmarks: the undamped reduced camera system H (D, D),
+    b (D,) and the damped landmark blocks' inverses Hll⁻¹ (L, 3, 3)."""
     K, L = Hpp.shape[0], Hll.shape[0]
     D = K * 6
-    dtype = Hpp.dtype
     damp_l = lam * torch.clamp(torch.diagonal(Hll, dim1=-2, dim2=-1), min=1e-6) + (
-        ~lm_valid).to(dtype)[:, None]
+        ~lm_valid).to(Hpp.dtype)[:, None]
     Hll_inv = inv3x3(Hll + torch.diag_embed(damp_l))
     HiW = (Hll_inv @ Wf.view(L, 3, D)).reshape(L * 3, D)
     Hib = (Hll_inv @ bl[..., None]).reshape(L * 3)
     H = -(Wf.T @ HiW)
     H.view(K, 6, K, 6).diagonal(dim1=0, dim2=2).add_(Hpp.permute(1, 2, 0))  # + the Hpp blocks
-    b = bp.reshape(D) - Wf.T @ Hib
+    return H, bp.reshape(D) - Wf.T @ Hib, Hll_inv
+
+
+def _solve_reduced(H, b, Hll_inv, bl, Wf, pose_fixed, lam: float, solve: Callable):
+    """Damp the reduced system, solve it with ``solve`` and back-substitute
+    the landmarks: (dx (K,6), dl (L,3))."""
+    L, K = Hll_inv.shape[0], pose_fixed.shape[0]
+    dtype = H.dtype
     dH = torch.diagonal(H)
     damp = (lam * torch.clamp(dH, min=1e-6) + pose_fixed.repeat_interleave(6).to(dtype)
             + (dH < 1e-9).to(dtype))  # the last term: unobserved poses
@@ -144,9 +160,15 @@ def _reduced_solve(Hpp, bp, Hll, bl, Wf, lm_valid, pose_fixed, lam: float, solve
 
 
 def _gn_iteration(prob: GlobalMapProblem, rig: RigParams, lm_base: int, K: int, L: int,
-                  lam: float, solve: Callable = solve_spd):
+                  lam: float, solve: Callable = solve_spd, psum: Optional[Callable] = None):
+    """One GN iteration: (dx, dl, cost). With ``psum`` (a mesh's reduction)
+    the reduced system and the cost are summed over the mesh before the
+    damping."""
     Hpp, bp, Hll, bl, Wf, cost = _local_normal_eqs(prob, rig, lm_base, K, L)
-    dxk, dl = _reduced_solve(Hpp, bp, Hll, bl, Wf, prob.lm_valid, prob.pose_fixed, lam, solve)
+    H, b, Hll_inv = _eliminate(Hpp, bp, Hll, bl, Wf, prob.lm_valid, lam)
+    if psum is not None:
+        H, b, cost = psum(H), psum(b), psum(cost)
+    dxk, dl = _solve_reduced(H, b, Hll_inv, bl, Wf, prob.pose_fixed, lam, solve)
     return dxk, dl, cost
 
 
@@ -175,10 +197,6 @@ def ba_solve_local(prob: GlobalMapProblem, rig: RigParams, iters: int = 10, lam:
         dxk, dl, _ = _gn_iteration(prob, rig, 0, K, L, lam, solve)
         prob = _apply(prob, dxk, dl)
     return prob, _cost(_reproj_eval(prob, rig)[0])
-
-
-def _host(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
 def partition_problem(prob: GlobalMapProblem, n: int) -> GlobalMapProblem:
@@ -269,9 +287,12 @@ def _normal_eqs_bucketed(prob: BucketedProblem, rig: RigParams, K: int):
 
 
 def _gn_iteration_bucketed(prob: BucketedProblem, rig: RigParams, K: int, lam: float,
-                           solve: Callable = solve_spd):
+                           solve: Callable = solve_spd, psum: Optional[Callable] = None):
     Hpp, bp, Hll, bl, Wf, cost = _normal_eqs_bucketed(prob, rig, K)
-    dxk, dl = _reduced_solve(Hpp, bp, Hll, bl, Wf, prob.lm_valid, prob.pose_fixed, lam, solve)
+    H, b, Hll_inv = _eliminate(Hpp, bp, Hll, bl, Wf, prob.lm_valid, lam)
+    if psum is not None:
+        H, b, cost = psum(H), psum(b), psum(cost)
+    dxk, dl = _solve_reduced(H, b, Hll_inv, bl, Wf, prob.pose_fixed, lam, solve)
     return dxk, dl, cost
 
 
@@ -284,3 +305,55 @@ def ba_solve_bucketed(prob: BucketedProblem, rig: RigParams, iters: int = 10, la
         dxk, dl, _ = _gn_iteration_bucketed(prob, rig, K, lam, solve)
         prob = _apply(prob, dxk, dl)
     return prob, _cost(_reproj_eval_bucketed(prob, rig)[0])
+
+
+def _check_divides(what: str, n: int, **sizes) -> None:
+    for name, v in sizes.items():
+        if v % n:
+            raise ValueError(f"{what}: {name} = {v} does not divide over {n} ranks")
+
+
+def make_sharded_ba(mesh: ProcessMesh, rig: RigParams, K: int, L: int, O: int, iters: int = 10,
+                    lam: float = 1e-3):
+    """The sharded flat-layout BA step on ``mesh``: ``(step, shard)``.
+
+    ``shard(prob)`` cuts this rank's block of a problem laid out by
+    ``partition_problem(prob, mesh.size)`` (each observation on its
+    landmark's shard; ``obs_lm`` global). ``step(local)`` runs ``iters`` GN
+    iterations and returns (the local problem, the cost summed over the
+    mesh); ``runtime.gather`` rebuilds the whole problem. The final cost is
+    the last problem's, as ``ba_solve_local`` reports it (one sum; the JAX
+    step runs a further GN iteration for it). The reduced system is solved
+    by ``solve_spd``."""
+    _check_divides("make_sharded_ba", mesh.size, L=L, O=O)
+    Lloc = L // mesh.size
+    lm_base = mesh.rank * Lloc
+
+    @_float32_matmuls()
+    def step(local: GlobalMapProblem) -> Tuple[GlobalMapProblem, torch.Tensor]:
+        p = local
+        for _ in range(iters):
+            dxk, dl, _ = _gn_iteration(p, rig, lm_base, K, Lloc, lam, solve_spd, mesh.psum)
+            p = _apply(p, dxk, dl)
+        return p, mesh.psum(_cost(_reproj_eval(p, rig, lm_base)[0]))
+
+    return step, lambda prob: shard(mesh, prob)
+
+
+def make_sharded_ba_bucketed(mesh: ProcessMesh, rig: RigParams, K: int, L: int, iters: int = 10,
+                             lam: float = 1e-3):
+    """The sharded bucketed BA step on ``mesh``: ``(step, shard)``. The
+    (L, ...) fields are cut into one block per rank (observations travel
+    with their landmark's bucket); ``step(local)`` returns (the local
+    problem, the cost summed over the mesh), as ``make_sharded_ba``."""
+    _check_divides("make_sharded_ba_bucketed", mesh.size, L=L)
+
+    @_float32_matmuls()
+    def step(local: BucketedProblem) -> Tuple[BucketedProblem, torch.Tensor]:
+        p = local
+        for _ in range(iters):
+            dxk, dl, _ = _gn_iteration_bucketed(p, rig, K, lam, solve_spd, mesh.psum)
+            p = _apply(p, dxk, dl)
+        return p, mesh.psum(_cost(_reproj_eval_bucketed(p, rig)[0]))
+
+    return step, lambda prob: shard(mesh, prob)

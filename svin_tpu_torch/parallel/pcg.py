@@ -1,9 +1,8 @@
 """Matrix-free preconditioned-CG solvers for graphs and maps past the dense
 solves' reach: the 4-DoF and 6-DoF pose graphs and the bucketed bundle
-adjustment, on one device.
+adjustment, on one device or sharded over a process mesh.
 
-Counterpart of the JAX package's ``parallel/pcg.py`` (its sharded factories,
-``make_sharded_*`` and ``sharded_pose_major_index``, are not ported). Each
+Counterpart of the JAX package's ``parallel/pcg.py``. Each
 Gauss-Newton step solves its normal equations by ``_pcg``, a fixed number of
 CG iterations from zero whose guards are ``torch.where``s, so the GN and CG
 loops make no host synchronisation:
@@ -22,6 +21,15 @@ loops make no host synchronisation:
   formed; its matvec runs over the (L, R) observation buckets, with the
   per-pose sums by ``index_add_`` or, given ``pose_major_index``, by a
   gather and a sum.
+
+Sharded (``make_sharded_ba_pcg``, ``make_sharded_posegraph_pcg``): the
+landmarks and their buckets, or the edges, are cut into one block per rank
+of a ``runtime.ProcessMesh``; poses, nodes and the CG state are replicated.
+``ProcessMesh.psum`` sums the assembled pieces once per GN step (BA: Hpp,
+bp, the RHS correction and the cost; pose graph: the diagonal blocks, b,
+the cost and the coarse operator) and the matvec's per-pose (per-node) sum
+once per CG iteration, one ``all_reduce`` where the JAX package has one
+``psum``.
 
 On CUDA the entry points run float32 products in full float32 (TF32 off).
 """
@@ -45,7 +53,8 @@ from ..loopclosure.posegraph import (
 )
 from ..ops.linalg3 import inv3x3
 from ..pipeline.vio import _float32_matmuls
-from .dist_ba import BucketedProblem, _apply, _cost, _host, _reproj_eval_bucketed
+from .dist_ba import BucketedProblem, _apply, _check_divides, _cost, _host, _reproj_eval_bucketed
+from .runtime import ProcessMesh, shard
 
 
 # ---------------------------------------------------------------------- PCG
@@ -127,9 +136,11 @@ def _pose_reduce(g_flat, flat_pose, K: int, pose_perm: Optional[torch.Tensor]):
     return pad[pose_perm].sum(1)
 
 
-def _ba_assemble_pcg(prob: BucketedProblem, rig: RigParams, K: int, lam: float, pose_perm=None):
+def _ba_assemble_pcg(prob: BucketedProblem, rig: RigParams, K: int, lam: float, pose_perm=None,
+                     psum: Optional[Callable] = None):
     """Evaluate the factors once: (r, Jp, Jl, Hll_inv, Hpp_damped, Minv,
-    b_red, bl, cost), everything a PCG step needs."""
+    b_red, bl, cost), everything a PCG step needs; with ``psum`` the pose
+    sums and the cost are summed over the mesh before the damping."""
     L, R = prob.obs_pose.shape
     dtype = prob.pose_r.dtype
     r, Jp, Jl = _reproj_eval_bucketed(prob, rig)  # (L,R,2), (L,R,2,6), (L,R,2,3)
@@ -147,6 +158,8 @@ def _ba_assemble_pcg(prob: BucketedProblem, rig: RigParams, K: int, lam: float, 
     s = (Jl @ u[:, None, :, None])[..., 0]
     corr = _pose_reduce((JpT @ s[..., None]).reshape(L * R, 6), flat_pose, K, pose_perm)
     cost = _cost(r)
+    if psum is not None:
+        Hpp, bp, corr, cost = psum(Hpp), psum(bp), psum(corr), psum(cost)
     dHpp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
     damp = (lam * torch.clamp(dHpp, min=1e-6) + prob.pose_fixed.to(dtype)[:, None]
             + (dHpp < 1e-9).to(dtype))  # the last term: unobserved poses
@@ -155,10 +168,10 @@ def _ba_assemble_pcg(prob: BucketedProblem, rig: RigParams, K: int, lam: float, 
 
 
 def _ba_gn_step_pcg(prob: BucketedProblem, rig: RigParams, K: int, lam: float, cg_iters: int,
-                    pose_perm=None):
+                    pose_perm=None, psum: Optional[Callable] = None):
     L, R = prob.obs_pose.shape
     r, Jp, Jl, Hll_inv, Hpp_d, Minv, b_red, bl, cost = _ba_assemble_pcg(
-        prob, rig, K, lam, pose_perm)
+        prob, rig, K, lam, pose_perm, psum)
     pose = prob.obs_pose.long()
     flat_pose = pose.reshape(L * R)
     JlT, JpT = Jl.transpose(-1, -2), Jp.transpose(-1, -2)
@@ -169,6 +182,8 @@ def _ba_gn_step_pcg(prob: BucketedProblem, rig: RigParams, K: int, lam: float, c
         u = (Hll_inv @ u[..., None])[..., 0]
         s = (Jl @ u[:, None, :, None])[..., 0]
         y2 = _pose_reduce((JpT @ s[..., None]).reshape(L * R, 6), flat_pose, K, pose_perm)
+        if psum is not None:
+            y2 = psum(y2)
         return (Hpp_d @ v[..., None])[..., 0] - y2
 
     dx = _pcg(matvec, -b_red, lambda v: (Minv @ v[..., None])[..., 0], cg_iters)
@@ -192,13 +207,64 @@ def ba_solve_pcg(prob: BucketedProblem, rig: RigParams, iters: int = 10, cg_iter
     return prob, _cost(_reproj_eval_bucketed(prob, rig)[0])
 
 
+def sharded_pose_major_index(prob: BucketedProblem, K: int, n_shards: int,
+                             pad_mult: int = 8) -> torch.Tensor:
+    """Per-shard pose-major indices for the sharded PCG: the landmark axis
+    cut into ``n_shards`` blocks, each with its own (K, Rp) index into its
+    flattened (Lloc·R) slots, padded to a common Rp with that block's
+    sentinel Lloc·R. (n_shards, K, Rp), on the problem's device; a rank
+    takes its own block."""
+    L, R = prob.obs_pose.shape
+    _check_divides("sharded_pose_major_index", n_shards, L=L)
+    Lloc = L // n_shards
+    perms = [_host(pose_major_index(prob.obs_pose[s * Lloc:(s + 1) * Lloc],
+                                    prob.obs_valid[s * Lloc:(s + 1) * Lloc], K, pad_mult))
+             for s in range(n_shards)]
+    out = np.full((n_shards, K, max(p.shape[1] for p in perms)), Lloc * R, np.int64)
+    for s, p in enumerate(perms):
+        out[s, :, :p.shape[1]] = p
+    return torch.from_numpy(out).to(prob.obs_pose.device)
+
+
+def make_sharded_ba_pcg(mesh: ProcessMesh, rig: RigParams, K: int, L: int, iters: int = 10,
+                        cg_iters: int = 48, lam: float = 1e-3, use_pose_perm: bool = False):
+    """The sharded matrix-free BA step on ``mesh``: the landmark sharding of
+    ``make_sharded_ba_bucketed`` with the PCG reduced solve, so a GN step
+    sums (K,6,6) + 2 x (K,6) + the cost once and a (K,6) per CG iteration.
+
+    Returns ``(step, shard)``; ``step(local)`` gives (the local problem, the
+    cost summed over the mesh: the last problem's, as ``ba_solve_pcg``
+    reports it). With ``use_pose_perm``: ``(step, (shard, shard_perm))``,
+    ``step(local, perm)`` takes this rank's (K, Rp) block of
+    ``sharded_pose_major_index`` (``shard_perm`` cuts it) and sums per pose by
+    gathers."""
+    _check_divides("make_sharded_ba_pcg", mesh.size, L=L)
+
+    @_float32_matmuls()
+    def step(local: BucketedProblem, perm: Optional[torch.Tensor] = None):
+        if use_pose_perm and perm is None:
+            raise ValueError("make_sharded_ba_pcg: the step takes its rank's pose-major index")
+        p = local
+        for _ in range(iters):
+            dxk, dl, _ = _ba_gn_step_pcg(p, rig, K, lam, cg_iters, perm, mesh.psum)
+            p = _apply(p, dxk, dl)
+        return p, mesh.psum(_cost(_reproj_eval_bucketed(p, rig)[0]))
+
+    cut = lambda prob: shard(mesh, prob)  # noqa: E731
+    if use_pose_perm:
+        return step, (cut, lambda perm: perm[mesh.rank].to(mesh.device))
+    return step, cut
+
+
 # ------------------------------------------------------------- pose graphs
-def _pg_system(r, Ji, Jj, ei, ej, free, N: int, G: int):
+def _pg_system(r, Ji, Jj, ei, ej, free, N: int, G: int, psum: Optional[Callable] = None):
     """The two-level PCG's pieces for one GN step of a pose graph whose
     whitened, free-masked edge terms are r (E,m), Ji, Jj (E,m,d): the
     right-hand side −b, the matvec, the preconditioner (the fine level's
     block inverses plus the inverse of the coarse Galerkin operator over
-    groups of G consecutive nodes, damped, flat (Nc·d)²) and the cost."""
+    groups of G consecutive nodes, damped, flat (Nc·d)²) and the cost. With
+    ``psum`` the edge sums (Hd, b, the cost, Hc) and the matvec's are summed
+    over the mesh."""
     d = Ji.shape[-1]
     dtype, dev = r.dtype, r.device
     E = ei.shape[0]
@@ -217,6 +283,8 @@ def _pg_system(r, Ji, Jj, ei, ej, free, N: int, G: int):
     Hc = torch.zeros(Nc * Nc, d, d, dtype=dtype, device=dev).index_add_(
         0, torch.cat([ci * Nc + ci, cj * Nc + cj, ci * Nc + cj, cj * Nc + ci]),
         torch.cat([JtJ, Hij, Hij.transpose(-1, -2)]))
+    if psum is not None:
+        Hd, b, cost, Hc = psum(Hd), psum(b), psum(cost), psum(Hc)
     freef = free.to(dtype)[:, None]
     damp = 1e-6 * torch.clamp(torch.diagonal(Hd, dim1=-2, dim2=-1), min=1.0) + (1.0 - freef)
     Minv = _inv_blocks(Hd + torch.diag_embed(damp))
@@ -234,6 +302,8 @@ def _pg_system(r, Ji, Jj, ei, ej, free, N: int, G: int):
         t = (J2 @ v[idx][..., None])[..., 0]
         t = t[:E] + t[E:]
         y = torch.zeros_like(v).index_add_(0, idx, (J2T @ torch.cat([t, t])[..., None])[..., 0])
+        if psum is not None:
+            y = psum(y)
         # the block-diagonal damping (identity on fixed coordinates) lies
         # outside the edge sum
         return torch.addcmul(y, damp, v)
@@ -246,9 +316,10 @@ def _pg_system(r, Ji, Jj, ei, ej, free, N: int, G: int):
     return -b * freef, matvec, precond, cost
 
 
-def _two_level_pcg(r, Ji, Jj, ei, ej, free, N: int, cg_iters: int, G: int):
+def _two_level_pcg(r, Ji, Jj, ei, ej, free, N: int, cg_iters: int, G: int,
+                   psum: Optional[Callable] = None):
     """One pose-graph GN step's update (N, d) and cost."""
-    rhs, matvec, precond, cost = _pg_system(r, Ji, Jj, ei, ej, free, N, G)
+    rhs, matvec, precond, cost = _pg_system(r, Ji, Jj, ei, ej, free, N, G, psum)
     return _pcg(matvec, rhs, precond, cg_iters), cost
 
 
@@ -270,14 +341,14 @@ def _free(valid, fix_before):
 
 
 def _pg4_gn_step_pcg(nd: PoseGraphNodes, edges: PoseGraphEdges, fix_before, N: int,
-                     cg_iters: int, coarse_group: int = 16):
+                     cg_iters: int, coarse_group: int = 16, psum: Optional[Callable] = None):
     """One 4-DoF GN step by two-level PCG: block-Jacobi alone moves a loop
     correction one edge-hop per CG iteration along a chain; the coarse
     level carries the long-wavelength drift in one application."""
     free = _free(nd.valid, fix_before)
     r, Ji, Jj = _pg4_eval(nd, edges, free)
     return _two_level_pcg(r, Ji, Jj, edges.i.long(), edges.j.long(), free, N, cg_iters,
-                          coarse_group)
+                          coarse_group, psum)
 
 
 @_float32_matmuls()
@@ -309,12 +380,12 @@ def _pg6_eval(nd: PoseGraph6Nodes, edges: PoseGraph6Edges, free):
 
 
 def _pg6_gn_step_pcg(nd: PoseGraph6Nodes, edges: PoseGraph6Edges, fix_before, N: int,
-                     cg_iters: int, coarse_group: int = 16):
+                     cg_iters: int, coarse_group: int = 16, psum: Optional[Callable] = None):
     """One SE(3) GN step by the 4-DoF step's two-level PCG on 6x6 blocks."""
     free = _free(nd.valid, fix_before)
     r, Ji, Jj = _pg6_eval(nd, edges, free)
     return _two_level_pcg(r, Ji, Jj, edges.i.long(), edges.j.long(), free, N, cg_iters,
-                          coarse_group)
+                          coarse_group, psum)
 
 
 @_float32_matmuls()
@@ -331,3 +402,24 @@ def optimize_6dof_pcg(nodes: PoseGraph6Nodes, edges: PoseGraph6Edges, fix_before
                              q=quat.normalize(quat.multiply(quat.exp(dx[:, 3:6]), nd.q)),
                              valid=nd.valid)
     return nd
+
+
+def make_sharded_posegraph_pcg(mesh: ProcessMesh, N: int, E: int, iters: int = 10,
+                               cg_iters: int = 64, coarse_group: int = 16):
+    """The sharded matrix-free 4-DoF pose-graph step on ``mesh``: edges cut
+    into one block per rank, nodes and the CG state replicated; per GN step
+    one sum of the assembled pieces, per CG iteration one (N,4) sum.
+    ``(step, shard)``: ``step(nodes, local_edges, fix_before)`` gives (the
+    nodes, the cost of the final nodes summed over the mesh)."""
+    _check_divides("make_sharded_posegraph_pcg", mesh.size, E=E)
+
+    @_float32_matmuls()
+    def step(nodes: PoseGraphNodes, edges: PoseGraphEdges, fix_before):
+        nd = nodes
+        for _ in range(iters):
+            dx, _ = _pg4_gn_step_pcg(nd, edges, fix_before, N, cg_iters, coarse_group, mesh.psum)
+            nd = nd._replace(p=nd.p + dx[:, :3], yaw=nd.yaw + dx[:, 3])
+        r, _, _ = _pg4_eval(nd, edges, _free(nd.valid, fix_before))
+        return nd, mesh.psum(_cost(r))
+
+    return step, lambda edges: shard(mesh, edges)

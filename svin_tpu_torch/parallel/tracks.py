@@ -1,10 +1,9 @@
-"""Track-structured global bundle adjustment on one device: the solver for
-Cave-scale maps (thousands of keyframes, tens of thousands of landmarks).
+"""Track-structured global bundle adjustment, on one device or sharded over
+a process mesh: the solver for Cave-scale maps (thousands of keyframes,
+tens of thousands of landmarks).
 
-Counterpart of the single-device half of the JAX package's
-``parallel/tracks.py`` (its sharded step, ``make_sharded_ba_tracks``, is not
-ported). A landmark is seen by a contiguous run of keyframes, its track:
-``tracks_from_problem`` sorts the landmarks by their first observing pose
+Counterpart of the JAX package's ``parallel/tracks.py``. A landmark is
+seen by a contiguous run of keyframes, its track: ``tracks_from_problem`` sorts the landmarks by their first observing pose
 (the base) and lays each one's observations of poses base .. base+span-1
 out in ``span * C`` dense slots (slot j: pose base + j // C, camera j % C);
 what does not fit (loop-closure re-observations, slot collisions) goes to a
@@ -23,12 +22,20 @@ keeps W summed over each pose's cameras: (L, 3, span·6).
 The math is ``pcg.ba_solve_pcg``'s: the Schur-reduced camera system by PCG
 with block-Jacobi preconditioning, robust weight sqrt(min(1, 3/|r|)),
 validity at depth > 0.2, fixed poses by Jacobian zeroing and unit damping.
-The GN and CG loops make no host synchronisation; on CUDA the entry point
-runs float32 products in full float32 (TF32 off).
+The GN and CG loops make no host synchronisation; on CUDA the entry points
+run float32 products in full float32 (TF32 off).
+
+Sharded (``make_sharded_ba_tracks``, on ``tracks_from_problem(...,
+n_shards=n)``): the landmark blocks, sorted by base, are cut contiguously
+into one block per rank of a ``runtime.ProcessMesh``, with each shard's
+overflow; poses and the CG state are replicated. ``ProcessMesh.psum`` sums
+the (K, 33) pose-side reduction and the cost once per GN step and the (K, 6)
+matvec output once per CG iteration, one ``all_reduce`` where the JAX
+package has one ``psum``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +45,7 @@ from ..kinematics import quaternion as quat
 from ..pipeline.vio import _float32_matmuls
 from .dist_ba import GlobalMapProblem, _host
 from .pcg import _inv_blocks, _pcg
+from .runtime import ProcessMesh, shard
 
 
 class TrackMeta(NamedTuple):
@@ -428,7 +436,11 @@ def _inv3_channels(h, damp):
     return (i00, i01, i02, i01, i11, i12, i02, i12, i22)
 
 
-def _assemble_tracks(tp: TrackProblem, rig: RigParams, meta: TrackMeta, lam) -> _Assembled:
+def _assemble_tracks(tp: TrackProblem, rig: RigParams, meta: TrackMeta, lam,
+                     psum: Optional[Callable] = None) -> _Assembled:
+    """Evaluate and reduce the factors once: everything a PCG step needs.
+    With ``psum`` the pose-side reduction and the cost are summed over the
+    mesh before the damping."""
     span, C, K = meta.span, meta.C, meta.K
     L, M = tp.lm.shape[0], tp.ov_pose.shape[0]
     W, Hpp, Hll, bl, bp, rsq = _eval_core(rig, **_slot_inputs(tp, rig, meta))
@@ -454,6 +466,8 @@ def _assemble_tracks(tp: TrackProblem, rig: RigParams, meta: TrackMeta, lam) -> 
     corr_ov = (u[tp.ov_lm][:, None, :] @ Wov)[:, 0]
     red.index_add_(0, tp.ov_pose, torch.cat([torch.stack(Hppo + bpo, dim=1), corr_ov], dim=1))
     cost = 0.5 * (rsq.sum() + rsqo.sum())
+    if psum is not None:
+        red, cost = psum(red), psum(cost)
 
     Hpp_m = _sym_from_tri(red[:, :21], 6)
     dHpp = torch.diagonal(Hpp_m, dim1=-2, dim2=-1)
@@ -486,11 +500,14 @@ def _apply_hinv(Hinv: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return (Hinv @ z[..., None])[..., 0]
 
 
-def _gn_step_tracks(tp: TrackProblem, rig: RigParams, meta: TrackMeta, lam, cg_iters: int):
-    asm = _assemble_tracks(tp, rig, meta, lam)
+def _gn_step_tracks(tp: TrackProblem, rig: RigParams, meta: TrackMeta, lam, cg_iters: int,
+                    psum: Optional[Callable] = None):
+    asm = _assemble_tracks(tp, rig, meta, lam, psum)
 
     def matvec(v):
         y2 = _phase2_y(asm, tp, meta, _apply_hinv(asm.Hll_inv, _phase1_z(asm, tp, meta, v)))
+        if psum is not None:
+            y2 = psum(y2)
         return (asm.Hpp_d @ v[..., None])[..., 0] - y2
 
     dx = _pcg(matvec, -asm.b_red, lambda v: (asm.Minv @ v[..., None])[..., 0], cg_iters)
@@ -517,3 +534,24 @@ def ba_solve_tracks(tp: TrackProblem, rig: RigParams, meta: TrackMeta, iters: in
         dxk, dl, _ = _gn_step_tracks(tp, rig, meta, lam, cg_iters)
         tp = _apply_tracks(tp, dxk, dl)
     return tp, _assemble_tracks(tp, rig, meta, lam).cost
+
+
+def make_sharded_ba_tracks(mesh: ProcessMesh, rig: RigParams, meta: TrackMeta, iters: int = 10,
+                           cg_iters: int = 32, lam: float = 1e-3):
+    """The sharded track-structured BA step on ``mesh``, for a problem built
+    by ``tracks_from_problem(..., n_shards=mesh.size)`` (``meta`` its
+    per-shard layout): ``(step, shard)``. ``shard(tp)`` cuts this rank's
+    landmark blocks (``obs_uv`` along its slot-landmark axis, ``obs_valid``
+    along its second) and overflow; ``step(local)`` gives (the local
+    problem, the cost summed over the mesh: the last problem's assembly
+    cost, as ``ba_solve_tracks`` reports it)."""
+
+    @_float32_matmuls()
+    def step(local: TrackProblem) -> Tuple[TrackProblem, torch.Tensor]:
+        tp = local
+        for _ in range(iters):
+            dxk, dl, _ = _gn_step_tracks(tp, rig, meta, lam, cg_iters, mesh.psum)
+            tp = _apply_tracks(tp, dxk, dl)
+        return tp, _assemble_tracks(tp, rig, meta, lam, mesh.psum).cost
+
+    return step, lambda tp: shard(mesh, tp)
