@@ -164,6 +164,12 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
      output written and parsed, every healthy keyframe taken by the closer
      and through the nearest-codeword kernel once. The kernels' launches in
      the closer's ``add_keyframe`` are counted apart from the app's engine.
+     Then the health gate: one run with the gauntlet rig
+     (``tools/gauntlet_torch.py``'s stereo config) over 6 s with a
+     featureless stretch at 2-4 s and primitive odometry: the switch to the
+     primitive estimator inside the stretch and back after it,
+     ``svin_robust.txt`` and ``switch_info.txt`` finite, the nearest
+     codeword once per keyframe the closer takes.
 
 7. The loop closer past 512 nodes.
    - Solves on in-place graphs (``closer_past_512``: a circle lapped twice
@@ -264,6 +270,7 @@ from svin_tpu_torch.pipeline import (BackendStep, VioEngine, load_config, progra
 from svin_tpu_torch.pipeline.async_vio import AsyncVioEngine
 from svin_tpu_torch.pipeline.checkpoint import load_engine, save_engine
 from svin_tpu_torch.utils import Timing
+from svin_tpu_torch.utils.timing import device_profile_summary
 
 N_FRAMES = 5
 K = 400
@@ -1266,11 +1273,9 @@ def async_drive(engine, events, blocking=True, pace=None) -> dict:
 
 
 def device_profile(fn, top: int = 0) -> dict:
-    """One ``fn()`` under ``torch.profiler``: the device-busy share (the
-    union of the device operations' intervals over the wall time, which the
-    profiler's own host cost lengthens), the wall s, the summed device ms
-    and the number of device operations, and the ``top`` operation names by
-    device ms as (name, ms, count)."""
+    """One ``fn()`` under ``torch.profiler``: ``device_profile_summary`` of
+    the window (busy share, wall s, device ms and operations, the ``top``
+    operations by device ms)."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1278,20 +1283,7 @@ def device_profile(fn, top: int = 0) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy, end = 0.0, -np.inf
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in on_card):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in on_card:
-        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-        by_name[e.name][1] += 1
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"busy": busy * 1e-6 / wall, "wall": wall,
-            "ms": sum(e.time_range.elapsed_us() for e in on_card) / 1e3, "ops": len(on_card),
-            "top": [(name[:60], round(ms, 3), n) for name, (ms, n) in ranked]}
+    return device_profile_summary(prof, wall, top)
 
 
 def npz_arrays(path) -> dict:
@@ -1434,6 +1426,14 @@ LOOP_RECENCY = 5  # RECENCY_EXCLUSION for the short revisit, as the JAX tests se
 # keyframes track ~20% of their keypoints, and the health gate (new-keypoint
 # ratio < 0.75) takes one of the first five
 ENTRY_DURATION_S = "3.0"
+# the health gate's run on the card: the gauntlet rig at the CLI parity
+# test's quick case (tests/test_torch_cli_parity.py), a featureless stretch
+# and primitive odometry
+HEALTH_SETTINGS = {"SVIN_SYNTH_DURATION": "6", "SVIN_SYNTH_REVISIT": "1",
+                   "SVIN_SYNTH_DEGRADE": "2:4", "SVIN_SYNTH_PRIMITIVE": "1"}
+HEALTH_STRETCH = (2.0, 4.0)
+# wall seconds of runs inside a phase, printed beside the phases'
+SUBPHASE_S = {}
 # the card's 6-DoF revisit path against a float64 CPU closer's
 REF_TOL_M = 0.003
 LOOP_STAGES = ("lc.1 describe_detect", "lc.2 bow", "lc.3 query", "lc.4 verify", "lc.4.1 match",
@@ -1836,7 +1836,48 @@ def entry_point_phase(dev) -> dict:
             os.environ.pop("SVIN_SYNTH_DURATION", None)
     if out["first"]["taken"] + out["resumed"]["taken"] < 1:
         raise AssertionError("run_synchronous: no healthy keyframe reached the closer in either run")
+    out["health"] = health_gate_run()
     return out
+
+
+def health_gate_run() -> dict:
+    """``run_synchronous`` on the card with the gauntlet rig over a
+    featureless stretch (HEALTH_SETTINGS): the health gate switches to the
+    primitive estimator inside the stretch and back after it,
+    ``svin_robust.txt`` and ``switch_info.txt`` are written and finite, and
+    every keyframe the closer takes goes through the nearest-codeword kernel
+    once. Launch counts from 0 just before the run, read just after."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import gauntlet_torch
+
+    with tempfile.TemporaryDirectory() as d:
+        run = gauntlet_torch.run_cli(gauntlet_torch.STEREO_YAML, HEALTH_SETTINGS, d, "cuda")
+        probe, launches = run["probe"], run["launches"]
+        sw = gauntlet_torch.switch_stamps(d)
+        robust = np.loadtxt(os.path.join(d, "svin_robust.txt"), ndmin=2)
+        stamps = [float(x.split()[0]) for x in open(os.path.join(d, "switch_info.txt"))
+                  if x.strip()]
+    SUBPHASE_S["health gate run"] = round(run["wall_s"], 1)
+    t_p, t_v = sw["to_primitive_s"], sw["to_vio_s"]
+    lo, hi = HEALTH_STRETCH
+    if run["rc"] != 0 or t_p is None or t_v is None or not (lo <= t_p <= hi and t_v > t_p):
+        raise AssertionError(f"health gate: rc {run['rc']}, switches {sw} (stretch {lo}-{hi} s)")
+    if not (robust.shape[1] == 8 and len(robust) > 0 and np.isfinite(robust).all()
+            and np.isfinite(stamps).all()):
+        raise AssertionError(f"health gate: svin_robust.txt {robust.shape} or switch_info.txt "
+                             f"{stamps} not finite")
+    taken = sum(probe.kf_taken)
+    if not (taken >= 1 and launches["hamming_nearest"] == taken
+            and probe.closer_launches["hamming_nearest"] == taken
+            and launches["hamming_matrix"] == 0 and all(launches[k] > 0 for k in ON_PATH)):
+        raise AssertionError(f"health gate: the closer took {taken} of {len(probe.kf_taken)} "
+                             f"keyframes; launches {launches}, in add_keyframe "
+                             f"{dict(probe.closer_launches)}")
+    log(f"health gate on the card ({HEALTH_SETTINGS}): VIO->PRIMITIVE at {t_p:.3f} s, back at "
+        f"{t_v:.3f} s; {len(probe.frame_ms)} frames in {run['wall_s']:.1f} s, {len(robust)} "
+        f"robust poses; the closer took {taken} of {len(probe.kf_taken)} keyframe exports, each "
+        f"through the nearest-codeword kernel once; launches {launches}")
+    return {"launches": launches, "closer_launches": dict(probe.closer_launches)}
 
 
 def loop_probe(dev) -> None:
@@ -1960,10 +2001,12 @@ def loop_phase(dev) -> dict:
     # every launch of the phase, and those of the closer alone (the revisit
     # drives, and add_keyframe within the apps)
     launches = {k: main_run["launches"][k] + six["launches"][k] + entry["first"]["launches"][k]
-                + entry["resumed"]["launches"][k] for k in KERNELS}
+                + entry["resumed"]["launches"][k] + entry["health"]["launches"][k]
+                for k in KERNELS}
     closer = {k: main_run["launches"][k] + six["launches"][k]
               + entry["first"]["closer_launches"].get(k, 0)
-              + entry["resumed"]["closer_launches"].get(k, 0) for k in KERNELS}
+              + entry["resumed"]["closer_launches"].get(k, 0)
+              + entry["health"]["closer_launches"].get(k, 0) for k in KERNELS}
     return launches, closer
 
 
@@ -2858,7 +2901,7 @@ def main() -> int:
     cave_launches = phase("global BA, Cave shape", cave_ba_phase, dev)
     entry_launches = phase("flagship step", entry_phase, dev)
     mp_launches = phase("multi-process", multiprocess_phase, dev)
-    log(f"wall seconds per phase: {phase_s}")
+    log(f"wall seconds per phase: {phase_s}; within them: {SUBPHASE_S}")
     launches = {k: launches[k] + engine_launches[k] + large_launches[k] + pipelined_launches[k]
                 + loop_launches[k] + drive_launches[k] + ba_launches[k] + cave_launches[k]
                 + entry_launches[k] + mp_launches[k] for k in KERNELS}

@@ -54,7 +54,10 @@ def build(cfg, device):
     return engine, LoopCloser(engine.rig.cameras[0], cfg, device=engine.device, dtype=engine.dtype)
 
 
-def main(argv=None) -> int:
+def main(argv=None, on_start=None) -> int:
+    """Run the CLI on ``argv``; ``on_start(engine, closer)``, when given, is
+    called once both are built (and restored) and before the first event,
+    so a caller can time or count the run (``tools/gauntlet_torch.py``)."""
     argv = sys.argv[1:] if argv is None else argv
     argv, opts = parse_args(argv)
     if len(argv) < 2:
@@ -145,6 +148,8 @@ def main(argv=None) -> int:
                 continue
             yield ev
 
+    if on_start is not None:
+        on_start(engine, closer)
     results = run_events(engine, route_primitive(events))
     closer.flush()  # any deferred (fast-relocalized) optimization
     write_outputs(out_dir, engine, closer, gmap, viewer, n_restored_kf, n_loops[0])

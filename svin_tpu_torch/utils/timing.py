@@ -84,6 +84,13 @@ class Timing:
             cls._stats.clear()
 
     @classmethod
+    def summary(cls) -> Dict[str, dict]:
+        """Every timer's count, mean ms and total s."""
+        with cls._lock:
+            return {name: {"n": s.count, "mean_ms": s.mean * 1e3, "total_s": s.total}
+                    for name, s in sorted(cls._stats.items())}
+
+    @classmethod
     def print_table(cls) -> str:
         lines = ["SVIn Timing", f"{'name':<42}{'n':>7}{'mean[ms]':>10}{'roll[ms]':>10}{'min[ms]':>10}{'max[ms]':>10}{'std[ms]':>10}"]
         for name in sorted(cls._stats):
@@ -125,3 +132,28 @@ class Timer:
 
     def __exit__(self, *exc) -> None:
         self.stop()
+
+
+def device_profile_summary(prof, wall: float, top: int = 0) -> dict:
+    """A finished ``torch.profiler`` window of ``wall`` seconds: the
+    device-busy share (the union of the device operations' intervals over
+    the wall time, which the profiler's own host cost lengthens), the summed
+    device ms, the number of device operations, and the ``top`` operation
+    names by device ms as (name, ms, count)."""
+    import torch
+
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in on_card):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: Dict[str, list] = {}
+    for e in on_card:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.elapsed_us() / 1e3
+        acc[1] += 1
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"busy": busy * 1e-6 / wall, "wall": wall,
+            "ms": sum(e.time_range.elapsed_us() for e in on_card) / 1e3, "ops": len(on_card),
+            "top": [(name[:60], round(ms, 3), n) for name, (ms, n) in ranked]}

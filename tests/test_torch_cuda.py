@@ -35,7 +35,9 @@ The sharded bucketed BA at K = 64 (D = 384): on one NCCL rank in this
 process and on two gloo ranks sharing the card (worker processes,
 ``torch_dist_worker.py``), the cluster kernel once per GN step and the
 poses within 1e-4 m of the local solve on the card (float32 solves summed
-in another order, carried through 10 GN steps).
+in another order, carried through 10 GN steps). The five float32
+regressions of ``tests/test_f32_numerics.py`` hold on the card with the JAX
+tests' bounds (``test_torch_f32_numerics.py``'s checks).
 """
 import numpy as np
 import pytest
@@ -47,6 +49,7 @@ from svin_tpu_torch.estimator import WindowConfig, optimize
 from svin_tpu_torch.ops import hamming as tham
 from svin_tpu_torch.ops import solve as tsolve
 from svin_tpu_torch.pipeline import BackendStep
+import test_torch_f32_numerics as f32_checks
 
 pytestmark = pytest.mark.cuda
 
@@ -742,3 +745,10 @@ def test_sharded_ba_on_two_gloo_ranks_sharing_the_card(dev, tmp_path):
     assert int(out["launches"]) == 10
     assert float(out["pose_diff"]) < 1e-4
     assert float(out["truth_err"]) < 0.01
+
+
+@pytest.mark.parametrize("name", list(f32_checks.CHECKS))
+def test_f32_regressions_on_the_card(dev, name):
+    """``tests/test_f32_numerics.py``'s five float32 regressions on the
+    port's functions on the card, with the JAX tests' inputs and bounds."""
+    f32_checks.CHECKS[name](dev)
