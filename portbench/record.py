@@ -1,0 +1,128 @@
+"""Taps on the timed path: what its window solve, its descriptor matchers and
+its pose graph were given and gave back, kept in the window for the
+reference (``reference.py``) to judge once the window has closed.
+
+- The window solve (B1): ``engine.solve(H, b)``, the Jacobi-scaled system of
+  every LM iteration; a sample of the calls, drawn from the seed.
+- The fused matcher (B2): ``engine.matcher`` (stereo, temporal and map
+  matching; a sample drawn from the seed) and ``closer.matcher`` (the loop
+  verification's match; every call).
+- The 4-DoF pose graph: ``loop_closure.optimize_4dof`` (every solve).
+
+A kept call's tensors are cloned on the device as the call returns (no
+host sync in the window); ``collect`` copies them to the host afterwards.
+"""
+from __future__ import annotations
+
+import random
+
+SOLVE_EVERY = 16  # one window solve in this many is kept, on average
+MATCH_EVERY = 16  # one engine matcher call in this many
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+class Tap:
+    """Which calls to keep (the seed's draw, only while ``on``) and the kept
+    calls."""
+
+    def __init__(self, seed: int, every: int):
+        self.rng = random.Random(seed)
+        self.every = every
+        self.on = False
+        self.kept = []
+
+    def want(self) -> bool:
+        return self.on and (self.every <= 1 or self.rng.random() * self.every < 1.0)
+
+
+class Taps:
+    def __init__(self, engine, closer, seed: int):
+        from svin_tpu_torch.loopclosure import loop_closure
+
+        self._lc = loop_closure
+        self.solve = Tap(seed * 3 + 1, SOLVE_EVERY)
+        self.match = Tap(seed * 3 + 2, MATCH_EVERY)
+        self.verify = Tap(0, 1)
+        self.pose_graph = Tap(0, 1)
+        self._saved = loop_closure.optimize_4dof
+        engine.solve = self._solve(engine.solve)
+        engine.matcher = self._matcher(engine.matcher, self.match)
+        closer.matcher = self._matcher(closer.matcher, self.verify)
+        loop_closure.optimize_4dof = self._pose_graph(self._saved)
+
+    @property
+    def on(self):
+        return self.solve.on
+
+    @on.setter
+    def on(self, value: bool):
+        for t in (self.solve, self.match, self.verify, self.pose_graph):
+            t.on = value
+
+    def remove(self):
+        """Put the pose-graph solver back (the engine and closer go with the run)."""
+        self._lc.optimize_4dof = self._saved
+
+    def _solve(self, solve):
+        tap = self.solve
+
+        def solve_tapped(H, b):
+            x = solve(H, b)
+            if tap.want():
+                tap.kept.append((H.detach().clone(), b.detach().clone(), x.detach().clone()))
+            return x
+
+        return solve_tapped
+
+    @staticmethod
+    def _matcher(matcher, tap):
+        def matcher_tapped(desc_a, desc_b, valid_a, valid_b, mask=None, max_distance=60,
+                           ratio=0.0, mutual=True):
+            res = matcher(desc_a, desc_b, valid_a, valid_b, mask=mask,
+                          max_distance=max_distance, ratio=ratio, mutual=mutual)
+            if tap.want():
+                c = lambda t: None if t is None else t.detach().clone()  # noqa: E731
+                tap.kept.append(((c(desc_a), c(desc_b), c(valid_a), c(valid_b), c(mask)),
+                                 (int(max_distance), float(ratio), bool(mutual)),
+                                 (c(res.idx_b), c(res.dist), c(res.valid))))
+            return res
+
+        return matcher_tapped
+
+    def _pose_graph(self, optimize):
+        tap = self.pose_graph
+
+        def optimize_tapped(nodes, edges, fix_before, iters=10):
+            # the closer writes the answer back into its tables, which a CPU
+            # run's input tensors share: keep copies taken before the solve
+            keep = tap.want()
+            if keep:
+                ins = tuple(type(t)(*(a.detach().clone() for a in t)) for t in (nodes, edges))
+            out = optimize(nodes, edges, fix_before, iters=iters)
+            if keep:
+                tap.kept.append(ins + (int(fix_before), int(iters),
+                                       type(out)(*(a.detach().clone() for a in out))))
+            return out
+
+        return optimize_tapped
+
+    def collect(self) -> dict:
+        """The kept calls as host arrays: ``solves`` [(H, b, x)], ``matches``
+        [(inputs, (max_distance, ratio, mutual), (idx_b, dist, valid))] of
+        the engine and of the closer, and ``pose_graphs`` [(nodes dict, edges
+        dict, fix_before, iters, (p, yaw) out)]."""
+        def match_np(kept):
+            return [(tuple(None if t is None else _np(t) for t in ins), opts,
+                     tuple(_np(t) for t in res)) for ins, opts, res in kept]
+
+        graphs = []
+        for nodes, edges, fix, iters, out in self.pose_graph.kept:
+            graphs.append(({k: _np(v) for k, v in nodes._asdict().items()},
+                           {k: _np(v) for k, v in edges._asdict().items()},
+                           fix, iters, (_np(out.p), _np(out.yaw))))
+        return {"solves": [tuple(_np(t) for t in s) for s in self.solve.kept],
+                "matches": match_np(self.match.kept), "verify_matches": match_np(self.verify.kept),
+                "pose_graphs": graphs}
