@@ -32,6 +32,7 @@ from . import estimator, imu, kinematics
 from .cameras import PinholeCamera
 from .estimator import factors as _factors
 from .estimator import gauss_newton as _gn
+from .utils import timing
 
 PORT_TYPES = {
     cls.__name__: cls
@@ -106,10 +107,14 @@ def _map_tensors(tree, fn):
 def to_numpy_tree(tree):
     """Tensor-leaf NamedTuples → the same NamedTuples with numpy leaves
     (independent host copies). One fetch: every device leaf is queued as a
-    non-blocking copy into pinned host memory, then the host waits once."""
+    non-blocking copy into pinned host memory, then the host waits once. A
+    call with a tensor leaf counts one ``fetch`` (``utils.timing.count``):
+    on a card, one host wait on the device."""
     streams = {}
+    leaves = []
 
     def fetch(t):
+        leaves.append(1)
         t = t.detach()
         if t.device.type == "cpu":
             return np.array(t.numpy())  # .numpy() shares the tensor's memory
@@ -117,6 +122,8 @@ def to_numpy_tree(tree):
         return t.to("cpu", non_blocking=True)
 
     host = _map_tensors(tree, fetch)
+    if leaves:
+        timing.count("fetch")
     if not streams:
         return host
     for s in streams.values():

@@ -15,7 +15,8 @@ terms (relative ~1e-6), not bit for bit.
 
 The LM loop is a Python loop of ``cfg.max_iterations`` steps with
 ``torch.where`` selects and no host synchronisation; iterations at or past
-``n_iters`` leave the state bit-identical.
+``n_iters`` leave the state bit-identical. Spans (``utils.timing``): the
+first assembly, each iteration, and the landmark qualities and covariances.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from ..imu import ImuParameters
 from ..kinematics import quaternion as quat
 from ..ops.linalg3 import eigvalsh3x3, inv3x3
 from ..ops.solve import solve_spd
+from ..utils.timing import Timer
 from .factors import (
     eval_depth,
     eval_ext_prior,
@@ -310,29 +312,34 @@ def optimize(
     changing the loop's length. ``solve`` is the dense SPD solver (the
     dispatching wrapper by default)."""
     dtype, device = window.r.dtype, window.r.device
-    bound = device_scalar(cfg.max_iterations if n_iters is None else n_iters, torch.int32, device)
-    eqs = assemble(window, factors, rig, imu_params, cfg)
-    cost0 = eqs.cost
-    win = window
-    lam = torch.full((), lam0, dtype=dtype, device=device)
-    n_acc = torch.zeros((), dtype=torch.int32, device=device)
+    with Timer("3.1.1.0 lm_assemble"):
+        bound = device_scalar(cfg.max_iterations if n_iters is None else n_iters, torch.int32,
+                              device)
+        eqs = assemble(window, factors, rig, imu_params, cfg)
+        cost0 = eqs.cost
+        win = window
+        lam = torch.full((), lam0, dtype=dtype, device=device)
+        n_acc = torch.zeros((), dtype=torch.int32, device=device)
     for i in range(cfg.max_iterations):
-        dx, dl = _solve_step(eqs, win, lam, cfg, solve)
-        cand = apply_step(win, dx, dl)
-        eqs_cand = assemble(cand, factors, rig, imu_params, cfg)
-        accept = (eqs_cand.cost < eqs.cost) & (bound > i)
-        win = select(accept, cand, win)
-        eqs = select(accept, eqs_cand, eqs)
-        lam = torch.where(accept, torch.clamp(lam / 3.0, min=1e-9), lam * 4.0)
-        n_acc = n_acc + accept.to(torch.int32)
+        with Timer("3.1.1.1 lm_iteration"):
+            dx, dl = _solve_step(eqs, win, lam, cfg, solve)
+            cand = apply_step(win, dx, dl)
+            eqs_cand = assemble(cand, factors, rig, imu_params, cfg)
+            accept = (eqs_cand.cost < eqs.cost) & (bound > i)
+            win = select(accept, cand, win)
+            eqs = select(accept, eqs_cand, eqs)
+            lam = torch.where(accept, torch.clamp(lam / 3.0, min=1e-9), lam * 4.0)
+            n_acc = n_acc + accept.to(torch.int32)
 
-    Hll = eqs.Hll
-    eye3 = torch.eye(3, dtype=Hll.dtype, device=device)
-    # landmark quality = sqrt(λmin/λmax) of the 3x3 landmark Hessian
-    evs = eigvalsh3x3(Hll + 1e-12 * eye3)
-    quality = torch.sqrt(torch.clamp(evs[:, 0], min=0) / torch.clamp(evs[:, 2], min=1e-12))
-    win = win._replace(lm_quality=torch.where(win.lm_valid, quality, torch.zeros_like(quality)))
-    lm_cov = inv3x3(Hll + 1e-6 * eye3)
+    with Timer("3.1.1.2 lm_covariance"):
+        Hll = eqs.Hll
+        eye3 = torch.eye(3, dtype=Hll.dtype, device=device)
+        # landmark quality = sqrt(λmin/λmax) of the 3x3 landmark Hessian
+        evs = eigvalsh3x3(Hll + 1e-12 * eye3)
+        quality = torch.sqrt(torch.clamp(evs[:, 0], min=0) / torch.clamp(evs[:, 2], min=1e-12))
+        win = win._replace(lm_quality=torch.where(win.lm_valid, quality,
+                                                  torch.zeros_like(quality)))
+        lm_cov = inv3x3(Hll + 1e-6 * eye3)
     return OptimizeResult(
         window=win, cost0=cost0, cost=eqs.cost, iterations=n_acc, lm_cov=lm_cov,
     )

@@ -7,7 +7,8 @@ addPointsToGlobalMap/updateGlobalMap): landmarks keyed by id with per-
 keyframe observations stored in LOCAL keyframe coordinates, so after a
 pose-graph correction every landmark is re-projected through the corrected
 keyframe poses (quality-weighted average over its observations). PLY export
-mirrors the ``save_pointcloud`` service.
+mirrors the ``save_pointcloud`` service. Spans (``utils.timing``): ``gm.1
+add_observations``, ``gm.2 update_after_loop``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..kinematics import Transformation, npq
+from ..utils.timing import Timer
 
 
 @dataclass
@@ -49,46 +51,48 @@ class GlobalMap:
         qualities: np.ndarray,
         colors: Optional[np.ndarray] = None,
     ) -> None:
-        C_CW = npq.to_rotation_matrix(npq.conjugate(np.asarray(T_WC.q)))
-        r = np.asarray(T_WC.r)
-        for k, lid in enumerate(np.asarray(point_ids)):
-            q = float(qualities[k])
-            if q < self.min_quality:
-                continue
-            p_W = np.asarray(points_W[k], float)
-            col = float(colors[k]) if colors is not None else 0.5
-            local = C_CW @ (p_W - r)
-            obs = Observation(kf_index=int(kf_index), local_pos=local, quality=q, color=col)
-            lm = self.landmarks.get(int(lid))
-            if lm is None:
-                self.landmarks[int(lid)] = Landmark(
-                    point=p_W, color=col, quality=q, observations=[obs]
-                )
-            else:
-                lm.observations.append(obs)
-                if q > lm.quality:
-                    lm.quality = q
-                    lm.point = p_W
+        with Timer("gm.1 add_observations"):
+            C_CW = npq.to_rotation_matrix(npq.conjugate(np.asarray(T_WC.q)))
+            r = np.asarray(T_WC.r)
+            for k, lid in enumerate(np.asarray(point_ids)):
+                q = float(qualities[k])
+                if q < self.min_quality:
+                    continue
+                p_W = np.asarray(points_W[k], float)
+                col = float(colors[k]) if colors is not None else 0.5
+                local = C_CW @ (p_W - r)
+                obs = Observation(kf_index=int(kf_index), local_pos=local, quality=q, color=col)
+                lm = self.landmarks.get(int(lid))
+                if lm is None:
+                    self.landmarks[int(lid)] = Landmark(
+                        point=p_W, color=col, quality=q, observations=[obs]
+                    )
+                else:
+                    lm.observations.append(obs)
+                    if q > lm.quality:
+                        lm.quality = q
+                        lm.point = p_W
 
     def update_after_loop(self, kf_poses: Dict[int, Transformation]) -> int:
         """Re-project all landmarks through corrected keyframe poses
         (quality-weighted mean over observations — LoopClosure.cpp:251-290)."""
-        n = 0
-        for lm in self.landmarks.values():
-            acc = np.zeros(3)
-            wsum = 0.0
-            for obs in lm.observations:
-                T = kf_poses.get(obs.kf_index)
-                if T is None:
-                    continue
-                C = npq.to_rotation_matrix(np.asarray(T.q))
-                p_W = C @ obs.local_pos + np.asarray(T.r)
-                acc += obs.quality * p_W
-                wsum += obs.quality
-            if wsum > 0:
-                lm.point = acc / wsum
-                n += 1
-        return n
+        with Timer("gm.2 update_after_loop"):
+            n = 0
+            for lm in self.landmarks.values():
+                acc = np.zeros(3)
+                wsum = 0.0
+                for obs in lm.observations:
+                    T = kf_poses.get(obs.kf_index)
+                    if T is None:
+                        continue
+                    C = npq.to_rotation_matrix(np.asarray(T.q))
+                    p_W = C @ obs.local_pos + np.asarray(T.r)
+                    acc += obs.quality * p_W
+                    wsum += obs.quality
+                if wsum > 0:
+                    lm.point = acc / wsum
+                    n += 1
+            return n
 
     def point_cloud(self) -> Tuple[np.ndarray, np.ndarray]:
         if not self.landmarks:

@@ -24,10 +24,14 @@ Differences of form from the JAX package:
   ``optimize_4dof_pcg`` on the edge tables as they are (the banded layout
   is the TPU's form; ``parallel/pg_band.py``), in 6-DoF
   ``optimize_6dof_pcg``; below it by the dense solves.
-- Host timers per stage (``utils.Timing``): ``lc.1 describe_detect``,
-  ``lc.2 bow``, ``lc.3 query``, ``lc.4 verify`` (per candidate inside it:
-  ``lc.4.1 match``, ``lc.4.2 p3p``), ``lc.5 pose_graph``; each stage ends
-  in its fetch, so the host clock reads the device work too.
+- Spans per stage (``utils.timing``): ``lc.0 add_keyframe`` around the
+  call, and inside it ``lc.1 describe_detect``, ``lc.2 bow``, ``lc.3
+  query``, ``lc.4 verify`` (per candidate inside it: ``lc.4.1 match``,
+  ``lc.4.2 p3p``), ``lc.5 pose_graph``, ``lc.6 db_add`` (the database
+  add, which quantizes the keyframe where no query did); each stage ends
+  in its fetch, so the host clock reads the device work too. ``stats`` counts queries,
+  candidates, rejects by cause and accepted loops, each increment also a
+  stamped counter ``lc.<key>``.
 """
 from __future__ import annotations
 
@@ -45,7 +49,7 @@ from ..kinematics import Transformation, npq, quaternion as quat
 from ..ops import descriptor as desc_ops, detection, hamming
 from ..pipeline.config import VioConfig
 from ..pipeline.vio import _float32_matmuls
-from ..utils import Timer
+from ..utils import Timer, timing
 from .posegraph import (
     PoseGraph6Edges,
     PoseGraph6Nodes,
@@ -212,11 +216,12 @@ class LoopCloser:
         self.debug = None
         self.pgo_gn_iters = 30  # pose-graph GN iterations per solve
         self.pgo_cg_iters = 96  # CG iterations per GN step past DENSE_MAX_NODES
-        self.stats = {
+        # each increment also a counter of utils.timing, "lc.<key>"
+        self.stats = timing.Counters("lc.", {
             "queries": 0, "candidates": 0, "floor_reject": 0,
             "desc_reject": 0, "pnp_reject": 0, "ratio_reject": 0,
             "gate_reject": 0, "accepted": 0,
-        }
+        })
         self.pgo_log: List[dict] = []
         self._last_solve_kf = 0
         # export kf_index → internal index (unhealthy keyframes never enter)
@@ -240,7 +245,7 @@ class LoopCloser:
         """Consume one VioEngine keyframe export; returns the loop if one was
         detected and verified (the optimization runs inline). Float32
         products run in full float32 (TF32 off) inside."""
-        with _float32_matmuls():
+        with _float32_matmuls(), Timer("lc.0 add_keyframe"):
             return self._add_keyframe(kf_export)
 
     def _add_keyframe(self, kf_export: dict) -> Optional[LoopInfo]:
@@ -358,10 +363,12 @@ class LoopCloser:
 
         # loop detection (database query before adding, recent ones excluded)
         loop, bow = self._detect_and_verify(kf)
-        if bow is not None:
-            self.db.add_vector(bow)
-        else:
-            self.db.add(np.concatenate([desc_w, desc_e]), np.concatenate([valid_w, kp_e_valid]))
+        with Timer("lc.6 db_add"):
+            if bow is not None:
+                self.db.add_vector(bow)
+            else:
+                self.db.add(np.concatenate([desc_w, desc_e]),
+                            np.concatenate([valid_w, kp_e_valid]))
 
         if loop is not None:
             self.loops.append(loop)

@@ -26,7 +26,7 @@ import numpy as np
 
 from ..kinematics import npq
 from ..native import FrameSynchronizer, ImuGate, ThreadSafeQueue
-from ..utils import Timer
+from ..utils import Timer, timing
 from .vio import FrameResult, VioEngine, _as_uint8
 
 _LOG = logging.getLogger("svin_tpu_torch")
@@ -185,7 +185,7 @@ class AsyncVioEngine:
                     # run add_frame there too
                     self._staged.push_blocking((t, images, None))
                     continue
-                with Timer("1.1 frontend_stage"):
+                with timing.frame(), Timer("1.1 frontend_stage"):
                     t_s, fd = self.engine.frontend_stage(t, images)
                 self._staged.push_blocking((t_s, images, fd))
         except Exception as exc:  # kept and re-raised by finish()
@@ -199,7 +199,7 @@ class AsyncVioEngine:
                 if item is None:
                     break
                 t, images, fd = item
-                with Timer("2.0 frame_total"):
+                with timing.frame(), Timer("2.0 frame_total"):
                     if fd is None:
                         result = self.engine.add_frame(t, images)
                     else:

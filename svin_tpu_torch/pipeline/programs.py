@@ -61,6 +61,7 @@ from ..ops import descriptor as desc_ops, detection, image as image_ops
 from ..ops.hamming import match_descriptors
 from ..ops.solve import solve_spd
 from ..problems import Frame
+from ..utils.timing import Timer
 
 # per-keypoint sqrt information at octave 0 (sigma = 1 px)
 KP_SQRT_INFO = 1.0
@@ -357,8 +358,10 @@ def optimize_marginalize_prune(w, f, n_it, victim, rig, imu_p, cfg, solve=solve_
     """optimize → marginalize ``victim`` at the post-optimize estimates →
     reprojection error for pruning (the fused engine program)."""
     res = optimize(w, f, rig, imu_p, cfg, n_iters=n_it, solve=solve)
-    w2, f2 = marginalize_slot(res.window, f, victim, rig, imu_p, cfg)
-    pv, pe = reproj_px_err(w2, f2, rig, cfg)
+    with Timer("3.1.1.3 marginalize"):
+        w2, f2 = marginalize_slot(res.window, f, victim, rig, imu_p, cfg)
+    with Timer("3.1.1.4 prune_errors"):
+        pv, pe = reproj_px_err(w2, f2, rig, cfg)
     return OptOutput(res, w2, f2, pv, pe)
 
 
@@ -378,7 +381,8 @@ def opt_program(rig: RigParams, imu_p: ImuParameters, cfg: WindowConfig,
     else:
         def prog(w, f, n_it):
             r = optimize(w, f, rig, imu_p, cfg, n_iters=n_it, solve=solve)
-            pv, pe = reproj_px_err(r.window, f, rig, cfg)
+            with Timer("3.1.1.4 prune_errors"):
+                pv, pe = reproj_px_err(r.window, f, rig, cfg)
             return (r.window, r.cost, r.iterations, r.lm_cov, pv, pe)
     return prog
 

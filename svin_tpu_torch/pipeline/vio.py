@@ -24,7 +24,9 @@ runs with the CUDA kernels (the defaults, on a CUDA device) or with their
 plain versions. The engine runs on ``cuda`` unless the caller names another
 device (the CPU tests pass ``device="cpu"``). ``add_frame``,
 ``frontend_stage`` and ``backend_step`` turn TF32 off for their duration
-(``_float32_matmuls``, safe with two threads inside).
+(``_float32_matmuls``, safe with two threads inside), and each is one frame
+of the spans (``utils.timing``: ``2.0 frame_total`` and its stages, ``3.3
+kf_callback`` around the app's keyframe callback).
 
 The pipelined path splits a frame in two (driven by ``AsyncVioEngine`` in
 ``pipeline/async_vio.py``, or on one thread):
@@ -67,7 +69,7 @@ from ..kinematics import Transformation, npq
 from ..ops import detection
 from ..ops.hamming import match_descriptors
 from ..ops.solve import solve_spd
-from ..utils import Timer
+from ..utils import Timer, timing
 from . import programs
 from .config import VioConfig
 
@@ -469,7 +471,7 @@ class VioEngine:
         """Feed one synchronized multi-camera frame (blocking mode). The
         image timestamp is shifted by ``imageDelay`` first."""
         t = float(t) - self.cfg.image_delay
-        with _float32_matmuls():
+        with _float32_matmuls(), timing.frame():
             if self.n_states == 0:
                 return self._initialize(t, images)
             with Timer("2.0 frame_total"):
@@ -485,7 +487,7 @@ class VioEngine:
         t, frame record)."""
         t = float(t) - self.cfg.image_delay
         T_att = self._attitude_prediction(t)
-        with _float32_matmuls(), self._frontend_stream(images):
+        with _float32_matmuls(), timing.frame(), self._frontend_stream(images):
             fd = self._new_frame(t, images, *self._detect_describe(images, T_att))
             if self._fe_stream is not None:
                 # the backend's stream waits on this before reading image0
@@ -553,7 +555,7 @@ class VioEngine:
 
         Returns the previous frame's result (None on the first pipelined
         frame); ``backend_flush`` drains the last one."""
-        with _float32_matmuls():
+        with _float32_matmuls(), timing.frame():
             if self.n_states == 0:
                 return self._initialize(t, images)
             if self._pending is None and self.n_states >= self.wcfg.num_states:
@@ -579,14 +581,16 @@ class VioEngine:
                 hp_dev = lmv_dev = None
 
             d = self._dev
-            sl = self._imu_slice(t_prev, t)
-            preint_out = None
-            if sl is not None:
-                ts, gy, ac, mask = sl
-                preint_out = programs.preint_prop(
-                    d(ts), d(gy), d(ac), d(mask), d(t_prev), d(t), d(base_r), d(base_q),
-                    d(base_sb), self.cfg.imu,
-                )
+            with Timer("2.3 preint"):
+                sl = self._imu_slice(t_prev, t)
+                preint_out = None
+                if sl is not None:
+                    ts, gy, ac, mask = sl
+                    preint_out = programs.preint_prop(
+                        d(ts), d(gy), d(ac), d(mask), d(t_prev), d(t), d(base_r), d(base_q),
+                        d(base_sb), self.cfg.imu,
+                    )
+            if preint_out is not None:
                 T_r_m, T_q_m = preint_out[1].r, preint_out[1].q
             else:
                 T_r_m, T_q_m = base_r, base_q
@@ -620,8 +624,9 @@ class VioEngine:
             victim = self._choose_marg_victim() if self.n_states >= self.wcfg.num_states else None
             lm_valid_before = self.window.lm_valid.copy() if victim is not None else None
             prog, bound = self._opt_program_for(n_it, victim is not None)
-            with Timer("3.1.1 opt_dispatch"):
+            with Timer("3.1.0 opt_upload"):
                 w_dev, f_dev = self._up(self.window), self._up(self.factors)
+            with Timer("3.1.1 opt_dispatch"):
                 opt_out = (prog(w_dev, f_dev, n_it) if victim is None
                            else prog(w_dev, f_dev, n_it, victim))
             self._pending = _PendingOpt(
@@ -657,17 +662,14 @@ class VioEngine:
             lm_iterations=self._lm_iterations_last,
         )
         self.trajectory.append((p.t, result.T_WS.r, result.T_WS.q))
-        if self.state_callback:
-            self.state_callback(result)
-        if result.keyframe_export is not None and self.keyframe_callback:
-            self.keyframe_callback(result.keyframe_export)
+        self._publish(result)
         return result
 
     def backend_flush(self) -> Optional[FrameResult]:
         """Fetch and finalize the last in-flight frame (end of stream)."""
         if self._pending is None:
             return None
-        with _float32_matmuls():
+        with _float32_matmuls(), timing.frame():
             return self._finalize_pending(*to_numpy_tree((self._pending.opt_out,
                                                           self._pending.image0)))
 
@@ -761,8 +763,7 @@ class VioEngine:
         res = FrameResult(timestamp=t, T_WS=T0, speed_bias=np.zeros(9), is_keyframe=True,
                           num_tracked=0, num_new_landmarks=n_new, cost=0.0)
         self.trajectory.append((t, np.asarray(T0.r), np.asarray(T0.q)))
-        if self.state_callback:
-            self.state_callback(res)
+        self._publish(res)
         return res
 
     def _attach_depth_factor(self, slot: int, t: float):
@@ -1018,49 +1019,51 @@ class VioEngine:
         """Hull-overlap keyframe decision + (on keyframes) new landmarks from
         the speculative stereo candidates, with the temporal bootstrap when
         stereo gave none (or the rig is mono)."""
-        is_kf = self._need_new_keyframe(fd)
-        n_new = 0
-        if is_kf:
-            with Timer("2.5 stereo_init"):
-                n_new = self._apply_stereo(s_f, slot, fd)
-            if self.rig.num_cameras < 2 or n_new == 0:
-                with Timer("2.6 temporal_init"):
-                    n_new += self._temporal_initialize_landmarks(slot, fd, T_pred)
-            self.window.is_keyframe[slot] = True
-            self.last_kf_slot = slot
-            self.kf_count += 1
-            self._kf_index_by_state_id[int(self.window.state_id[slot])] = self.kf_count
-            self._accumulate_scale_state(t)
+        with Timer("2.8 kf_decision"):
+            is_kf = self._need_new_keyframe(fd)
+            n_new = 0
+            if is_kf:
+                with Timer("2.5 stereo_init"):
+                    n_new = self._apply_stereo(s_f, slot, fd)
+                if self.rig.num_cameras < 2 or n_new == 0:
+                    with Timer("2.6 temporal_init"):
+                        n_new += self._temporal_initialize_landmarks(slot, fd, T_pred)
+                self.window.is_keyframe[slot] = True
+                self.last_kf_slot = slot
+                self.kf_count += 1
+                self._kf_index_by_state_id[int(self.window.state_id[slot])] = self.kf_count
+                self._accumulate_scale_state(t)
         return is_kf, n_new
 
     def _create_state(self, slot: int, t: float, t_prev: float, T_pred: Transformation, sb_pred,
                       fd: _FrameData, pre, W_imu) -> None:
         """New window state at the IMU-predicted pose + its factors (the
         bridging IMU factor, depth/sonar factors, extrinsics random walk)."""
-        w = self.window
-        w.r[slot] = np.asarray(T_pred.r)
-        w.q[slot] = np.asarray(T_pred.q)
-        w.speed_bias[slot] = sb_pred
-        w.state_valid[slot] = True
-        w.timestamp[slot] = t
-        w.state_id[slot] = self.next_state_id
-        w.is_keyframe[slot] = False
-        self.next_state_id += 1
-        self.frames[slot] = fd
-        self.n_states += 1
+        with Timer("2.7 create_state"):
+            w = self.window
+            w.r[slot] = np.asarray(T_pred.r)
+            w.q[slot] = np.asarray(T_pred.q)
+            w.speed_bias[slot] = sb_pred
+            w.state_valid[slot] = True
+            w.timestamp[slot] = t
+            w.state_id[slot] = self.next_state_id
+            w.is_keyframe[slot] = False
+            self.next_state_id += 1
+            self.frames[slot] = fd
+            self.n_states += 1
 
-        if pre is not None:  # IMU factor prev_slot -> slot
-            imf = self.factors.imu
-            k = slot - 1
-            for full, new in zip(imf.pre, pre):
-                full[k] = new
-            imf.sqrt_info[k] = W_imu
-            # a zero-Δt factor (IMU dropout) has no information
-            imf.valid[k] = float(np.asarray(pre.Delta_t)) > 0.0
+            if pre is not None:  # IMU factor prev_slot -> slot
+                imf = self.factors.imu
+                k = slot - 1
+                for full, new in zip(imf.pre, pre):
+                    full[k] = new
+                imf.sqrt_info[k] = W_imu
+                # a zero-Δt factor (IMU dropout) has no information
+                imf.valid[k] = float(np.asarray(pre.Delta_t)) > 0.0
 
-        self._attach_depth_factor(slot, t)
-        self._attach_sonar_factor(slot, t, T_pred)
-        self._decay_extrinsics_prior(t - t_prev)
+            self._attach_depth_factor(slot, t)
+            self._attach_sonar_factor(slot, t, T_pred)
+            self._decay_extrinsics_prior(t - t_prev)
 
     def _need_new_keyframe(self, fd: _FrameData) -> bool:
         """Convex-hull overlap / matching-ratio heuristic: per camera,
@@ -1085,16 +1088,18 @@ class VioEngine:
         t_prev = float(self.window.timestamp[prev_slot])
         sb_prev = self.window.speed_bias[prev_slot]
         T_prev = self.window.pose(prev_slot)
-        sl = self._imu_slice(t_prev, t)
         pre = None
         W_imu = None
         d = self._dev
+        with Timer("2.3 preint"):
+            sl = self._imu_slice(t_prev, t)
+            if sl is not None:
+                ts, gy, ac, mask = sl
+                pre_d, T_d, sb_d, W_d = programs.preint_prop(
+                    d(ts), d(gy), d(ac), d(mask), d(t_prev), d(t), d(T_prev.r), d(T_prev.q),
+                    d(sb_prev), self.cfg.imu,
+                )
         if sl is not None:
-            ts, gy, ac, mask = sl
-            pre_d, T_d, sb_d, W_d = programs.preint_prop(
-                d(ts), d(gy), d(ac), d(mask), d(t_prev), d(t), d(T_prev.r), d(T_prev.q), d(sb_prev),
-                self.cfg.imu,
-            )
             # not fetched yet: detection consumes the device-side attitude and
             # the propagation results ride the keypoint fetch
             with Timer("2.1 detect_describe"):
@@ -1134,7 +1139,8 @@ class VioEngine:
         lm_valid_before = self.window.lm_valid.copy() if victim is not None else None
         with Timer("3.1 optimization"):
             t_opt0 = time.perf_counter()
-            w_dev, f_dev = self._up(self.window), self._up(self.factors)
+            with Timer("3.1.0 opt_upload"):
+                w_dev, f_dev = self._up(self.window), self._up(self.factors)
             if victim is None:
                 with Timer("3.1.1 opt_dispatch"):
                     opt_out = prog(w_dev, f_dev, n_it)
@@ -1148,8 +1154,8 @@ class VioEngine:
                     (win_h, fac_h, cost_h, iters_h, lm_cov_h, pr_valid,
                      pr_err) = to_numpy_tree(opt_out)
             dt_opt = time.perf_counter() - t_opt0
-        self._apply_opt_results(win_h, fac_h, cost_h, iters_h, lm_cov_h, pr_valid, pr_err, victim,
-                                lm_valid_before, dt_opt, static_iters=bound)
+            self._apply_opt_results(win_h, fac_h, cost_h, iters_h, lm_cov_h, pr_valid, pr_err,
+                                    victim, lm_valid_before, dt_opt, static_iters=bound)
         if victim is not None:
             slot -= 1  # the newest slot shifted down by one
 
@@ -1163,11 +1169,18 @@ class VioEngine:
             lm_iterations=self._lm_iterations_last,
         )
         self.trajectory.append((t, result.T_WS.r, result.T_WS.q))
-        if self.state_callback:
-            self.state_callback(result)
-        if result.keyframe_export is not None and self.keyframe_callback:
-            self.keyframe_callback(result.keyframe_export)
+        self._publish(result)
         return result
+
+    def _publish(self, result: FrameResult) -> None:
+        """The state and keyframe callbacks, each under a span of its own
+        (the app's work there is not the engine's)."""
+        if self.state_callback:
+            with Timer("3.4 state_callback"):
+                self.state_callback(result)
+        if result.keyframe_export is not None and self.keyframe_callback:
+            with Timer("3.3 kf_callback"):
+                self.keyframe_callback(result.keyframe_export)
 
     _PRUNE_PX = 3.0
 
@@ -1177,33 +1190,35 @@ class VioEngine:
         factor write-back, the iteration-budget EMA (the first call and >10x
         outliers skipped), the landmark-covariance refresh, observation
         pruning, and the marginalization bookkeeping."""
-        per_it = dt_opt / max(static_iters or self.wcfg.max_iterations, 1)
-        if self._opt_calls > 0 and (self._opt_iter_ema is None or per_it < 10.0 * self._opt_iter_ema):
-            self._opt_iter_ema = (per_it if self._opt_iter_ema is None
-                                  else 0.8 * self._opt_iter_ema + 0.2 * per_it)
-        self._opt_calls += 1
-        self.window = win_h
-        if fac_h is not None:
-            self.factors = fac_h
-        self._cost_last = float(cost_h)
-        self._lm_iterations_last = int(iters_h)
-        # refresh landmark covariances (pose-conditioned inv(Hll)) for the
-        # projected-covariance gate where the landmark's Hessian block is
-        # well conditioned; others keep their creation-time triangulation
-        # covariance. A landmark seen once has a rank-2 block whose float32
-        # inverse is inf, and its quality sqrt(λmin/λmax) rounds to ~2e-4,
-        # above the 1e-6 bound: the finiteness check (not in the JAX
-        # engine) keeps that inf out of the gate
-        lm_cov_h = np.asarray(lm_cov_h)
-        lv = (self.window.lm_valid & (self.window.lm_quality > 1e-6)
-              & np.isfinite(lm_cov_h).all(axis=(1, 2)))
-        if lv.any():
-            self._lm_cov[lv] = lm_cov_h[lv]
-        bad = pr_valid & (pr_err > self._PRUNE_PX)
-        if bad.any():
-            self.factors.reproj.valid[bad] = False
-        if victim is not None:
-            self._post_marginalize_bookkeeping(victim, lm_valid_before)
+        with Timer("3.1.3 opt_writeback"):
+            per_it = dt_opt / max(static_iters or self.wcfg.max_iterations, 1)
+            if self._opt_calls > 0 and (self._opt_iter_ema is None
+                                        or per_it < 10.0 * self._opt_iter_ema):
+                self._opt_iter_ema = (per_it if self._opt_iter_ema is None
+                                      else 0.8 * self._opt_iter_ema + 0.2 * per_it)
+            self._opt_calls += 1
+            self.window = win_h
+            if fac_h is not None:
+                self.factors = fac_h
+            self._cost_last = float(cost_h)
+            self._lm_iterations_last = int(iters_h)
+            # refresh landmark covariances (pose-conditioned inv(Hll)) for the
+            # projected-covariance gate where the landmark's Hessian block is
+            # well conditioned; others keep their creation-time triangulation
+            # covariance. A landmark seen once has a rank-2 block whose float32
+            # inverse is inf, and its quality sqrt(λmin/λmax) rounds to ~2e-4,
+            # above the 1e-6 bound: the finiteness check (not in the JAX
+            # engine) keeps that inf out of the gate
+            lm_cov_h = np.asarray(lm_cov_h)
+            lv = (self.window.lm_valid & (self.window.lm_quality > 1e-6)
+                  & np.isfinite(lm_cov_h).all(axis=(1, 2)))
+            if lv.any():
+                self._lm_cov[lv] = lm_cov_h[lv]
+            bad = pr_valid & (pr_err > self._PRUNE_PX)
+            if bad.any():
+                self.factors.reproj.valid[bad] = False
+            if victim is not None:
+                self._post_marginalize_bookkeeping(victim, lm_valid_before)
 
     # --------------------------------------------------- marginalization
     def _choose_marg_victim(self) -> int:
@@ -1289,7 +1304,7 @@ class VioEngine:
             "timestamp": fd.timestamp,
             # the processed cam0 image (keyframes only): fetched with the
             # pipelined step's outputs, or here
-            "image": (image0 if image0 is not None else fd.image0.cpu().numpy()
+            "image": (image0 if image0 is not None else to_numpy_tree(fd.image0)
                       if fd.image0 is not None else np.asarray(images[0])),
             "T_WC_r": np.asarray(r_WC),
             "T_WC_q": np.asarray(q_WC),

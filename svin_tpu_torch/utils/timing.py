@@ -1,28 +1,83 @@
-"""Hierarchical named wall-clock profiler.
+"""The program's spans and counters, and its per-name timing tables.
 
 Replaces ``okvis::timing::Timer/Timing`` (reference:
 ``okvis_timing/include/okvis/timing/Timer.hpp:69-171``) and pose_graph's
-``utils::Statistics``: named timers with mean/min/max/stddev and a rolling
-window, a full-table printout, and a context-manager API. Device work should
-additionally be profiled with a device profiler; this covers host-side stage
-taxonomy ("2.1 detect_describe", "2.4 matching", "3.1 optimization", ...).
+``utils::Statistics``; the stage names ("2.1 detect_describe", "2.4
+matching", "3.1 optimization", "lc.4 verify", ...) are listed in PERF.md.
 
-A copy of the JAX package's ``utils/timing.py`` without its ``jax.profiler``
-wrapper: device work is profiled with ``torch.profiler``. A timer reads the
-host clock; around device work it measures enqueue time unless the timed
-block ends in a fetch or a synchronisation.
+A span (``Timer``, a context manager or start/stop) is a named interval of
+the host clock (``time.perf_counter_ns``) with
 
-Set ``SVIN_DEACTIVATE_TIMERS=1`` to compile timers out (DummyTimer analog).
+- its own id;
+- its parent: the span open on the same thread when it started (a
+  thread-local stack, so that a second thread's spans nest on their own);
+- its frame: one id shared by every span of one engine call (``frame()``,
+  opened by ``add_frame``, ``frontend_stage``, ``backend_step`` and
+  ``backend_flush``; 0 outside any).
+
+Closed spans go to one bounded store (``records()``, the newest
+``MAX_RECORDS``) and to their name's aggregate (count, mean, min, max, std
+and a rolling 50), which ``Timing`` reads for the apps' tables: ``Timing``
+is a view of the store, not a registry of its own. A counter (``count``)
+keeps a running total per name (``counters()``) and, like a span, a stamped
+record of each increment (``count_records()``), so that a stretch of frames
+can be counted after the fact; ``Counters`` is a dict whose increments are
+such counts (``LoopCloser.stats``). The one counter of host waits on the
+card is ``fetch`` (``convert.to_numpy_tree``).
+
+One switch: ``enable(on)``. It starts on unless ``SVIN_DEACTIVATE_TIMERS=1``;
+off, a span or a count costs one flag check and records nothing.
+
+While a ``torch.profiler`` is recording, each span is also a profiler range
+named ``svin.<name>``, on the trace's own clock, so that the device work
+launched inside a span can be put under it by the launch's correlation id
+(no clock offset to estimate), and ``device_trace``'s TensorBoard trace
+carries the spans. The range is an operator-scope one (``_RecordFunctionFast``,
+what an operator's dispatch opens): it adds no annotation to the device's
+timeline, as a ``record_function`` range would (its GPU-side copy reads as
+one more device operation to a reader of the trace).
+
+A span reads the host clock: around device work it measures enqueue time
+unless the block ends in a fetch or a synchronisation.
 """
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional
+
+import torch
+
+PREFIX = "svin."  # profiler ranges of the spans
+MAX_RECORDS = 1 << 16  # spans kept, and counter increments kept
+
+try:
+    from torch._C._profiler import _RecordFunctionFast
+except ImportError:  # pragma: no cover - a torch without it: no ranges
+    _RecordFunctionFast = None
+
+
+class Span(NamedTuple):
+    id: int
+    parent: int  # 0: a root on its thread
+    frame: int  # 0: outside any engine call
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+
+
+class Count(NamedTuple):
+    name: str
+    n: int
+    t_ns: int
+    parent: int  # the span open on the thread, 0 for none
+    frame: int
 
 
 @dataclass
@@ -38,8 +93,10 @@ class _Stats:
         self.count += 1
         self.total += v
         self.total_sq += v * v
-        self.vmin = min(self.vmin, v)
-        self.vmax = max(self.vmax, v)
+        if v < self.vmin:
+            self.vmin = v
+        if v > self.vmax:
+            self.vmax = v
         self.window.append(v)
 
     @property
@@ -58,43 +115,139 @@ class _Stats:
         return sum(self.window) / len(self.window) if self.window else 0.0
 
 
-class Timing:
-    """Global registry of named timers (thread-safe)."""
+# ------------------------------------------------------------------ store
+_on = os.environ.get("SVIN_DEACTIVATE_TIMERS", "0") != "1"
+_ids = itertools.count(1)  # span and frame ids (next() is atomic)
+_lock = threading.Lock()
+_spans: deque = deque(maxlen=MAX_RECORDS)
+_counts: deque = deque(maxlen=MAX_RECORDS)
+_stats: Dict[str, _Stats] = {}
+_totals: Dict[str, int] = {}
+_tls = threading.local()
 
-    _lock = threading.Lock()
-    _stats: Dict[str, _Stats] = {}
+
+def _thread():
+    """This thread's open-span stack and frame id."""
+    try:
+        return _tls.stack, _tls
+    except AttributeError:
+        _tls.stack, _tls.frame = [], 0
+        return _tls.stack, _tls
+
+
+def enable(on: bool = True) -> None:
+    """The one switch of spans and counters (default: on unless
+    ``SVIN_DEACTIVATE_TIMERS=1``)."""
+    global _on
+    _on = bool(on)
+
+
+def enabled() -> bool:
+    return _on
+
+
+def records() -> List[Span]:
+    """The kept spans, in the order they closed."""
+    return list(_spans)
+
+
+def count_records() -> List[Count]:
+    """The kept counter increments, in order."""
+    return list(_counts)
+
+
+def counters() -> Dict[str, int]:
+    """Every counter's running total."""
+    with _lock:
+        return dict(_totals)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``, stamped with the time, the open
+    span and the frame."""
+    if not _on:
+        return
+    stack, tls = _thread()
+    with _lock:
+        _totals[name] = _totals.get(name, 0) + n
+    _counts.append(Count(name, n, time.perf_counter_ns(), stack[-1] if stack else 0, tls.frame))
+
+
+class Counters(dict):
+    """A dict of counts whose every change is also a ``count`` of the
+    difference under ``prefix + key``: ``d["x"] += 1`` counts ``prefix + "x"``."""
+
+    def __init__(self, prefix: str, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.prefix = prefix
+
+    def __setitem__(self, key, value) -> None:
+        old = self.get(key, 0)
+        super().__setitem__(key, value)
+        if value != old:
+            count(self.prefix + key, value - old)
+
+
+class frame:
+    """The scope of one engine call: spans opened inside it on this thread
+    share one frame id. Nested scopes join the open one."""
+
+    __slots__ = ("_own",)
+
+    def __enter__(self) -> "frame":
+        _, tls = _thread()
+        self._own = _on and not tls.frame
+        if self._own:
+            tls.frame = next(_ids)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._own:
+            _tls.frame = 0
+
+
+class Timing:
+    """The per-name aggregates of the span store (thread-safe)."""
 
     @classmethod
     def add(cls, name: str, seconds: float) -> None:
-        with cls._lock:
-            cls._stats.setdefault(name, _Stats()).add(seconds)
+        with _lock:
+            st = _stats.get(name)
+            if st is None:
+                st = _stats[name] = _Stats()
+            st.add(seconds)
 
     @classmethod
     def get(cls, name: str) -> Optional[_Stats]:
-        return cls._stats.get(name)
+        return _stats.get(name)
 
     @classmethod
     def mean(cls, name: str) -> float:
-        s = cls._stats.get(name)
+        s = _stats.get(name)
         return s.mean if s else 0.0
 
     @classmethod
     def reset(cls) -> None:
-        with cls._lock:
-            cls._stats.clear()
+        """Clear the store: aggregates, spans and counters."""
+        with _lock:
+            _stats.clear()
+            _spans.clear()
+            _counts.clear()
+            _totals.clear()
 
     @classmethod
     def summary(cls) -> Dict[str, dict]:
         """Every timer's count, mean ms and total s."""
-        with cls._lock:
+        with _lock:
             return {name: {"n": s.count, "mean_ms": s.mean * 1e3, "total_s": s.total}
-                    for name, s in sorted(cls._stats.items())}
+                    for name, s in sorted(_stats.items())}
 
     @classmethod
     def print_table(cls) -> str:
         lines = ["SVIn Timing", f"{'name':<42}{'n':>7}{'mean[ms]':>10}{'roll[ms]':>10}{'min[ms]':>10}{'max[ms]':>10}{'std[ms]':>10}"]
-        for name in sorted(cls._stats):
-            s = cls._stats[name]
+        with _lock:
+            items = sorted(_stats.items())
+        for name, s in items:
             lines.append(
                 f"{name:<42}{s.count:>7}{s.mean*1e3:>10.3f}{s.rolling_mean*1e3:>10.3f}"
                 f"{s.vmin*1e3:>10.3f}{s.vmax*1e3:>10.3f}{s.std*1e3:>10.3f}"
@@ -102,28 +255,50 @@ class Timing:
         return "\n".join(lines)
 
 
-_DEACTIVATED = os.environ.get("SVIN_DEACTIVATE_TIMERS", "0") == "1"
-
-
 class Timer:
-    """Context-manager / start-stop timer feeding the global Timing registry."""
+    """A span: a context manager, or ``start()`` / ``stop()`` on one thread."""
 
-    __slots__ = ("name", "_t0")
+    __slots__ = ("name", "_t0", "_id", "_parent", "_frame", "_range")
 
     def __init__(self, name: str, start: bool = False):
         self.name = name
-        self._t0 = time.perf_counter() if start else None
+        self._t0 = None
+        if start:
+            self.start()
 
     def start(self) -> "Timer":
-        self._t0 = time.perf_counter()
+        if not _on:
+            self._t0 = None
+            return self
+        stack, tls = _thread()
+        self._parent = stack[-1] if stack else 0
+        self._frame = tls.frame
+        self._id = next(_ids)
+        stack.append(self._id)
+        self._range = None
+        if _RecordFunctionFast is not None and torch.autograd._profiler_enabled():
+            self._range = _RecordFunctionFast(PREFIX + self.name)
+            self._range.__enter__()
+        self._t0 = time.perf_counter_ns()
         return self
 
     def stop(self) -> float:
-        if self._t0 is None or _DEACTIVATED:
-            self._t0 = None
+        """Close the span; returns its seconds (0.0 when none was open)."""
+        if self._t0 is None:
             return 0.0
-        dt = time.perf_counter() - self._t0
-        self._t0 = None
+        t1 = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        stack, _ = _thread()
+        if stack and stack[-1] == self._id:
+            stack.pop()
+        elif self._id in stack:
+            stack.remove(self._id)
+        t0, self._t0 = self._t0, None
+        _spans.append(Span(self._id, self._parent, self._frame, self.name, t0, t1,
+                           threading.get_ident()))
+        dt = (t1 - t0) * 1e-9
         Timing.add(self.name, dt)
         return dt
 
@@ -136,7 +311,8 @@ class Timer:
 
 class device_trace:
     """Context manager wrapping ``torch.profiler`` for device-side kernel
-    timing (the per-kernel complement of the host-side ``Timer``):
+    timing (the per-kernel complement of the host-side ``Timer``; the spans
+    inside it are ranges of the trace, ``svin.<name>``):
 
         with device_trace("/tmp/svin_trace"):
             engine.add_frame(...)
@@ -153,8 +329,6 @@ class device_trace:
 
     def __enter__(self):
         try:
-            import torch
-
             acts = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -188,8 +362,6 @@ def device_profile_summary(prof, wall: float, top: int = 0) -> dict:
     the wall time, which the profiler's own host cost lengthens), the summed
     device ms, the number of device operations, and the ``top`` operation
     names by device ms as (name, ms, count)."""
-    import torch
-
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy, end = 0.0, -math.inf
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in on_card):
