@@ -63,7 +63,13 @@ kernels build into ``svin_tpu_torch/_build/`` at first use). Phases:
    agreeing (identical matches; cost within 1%, positions within 5 mm:
    f32 LM steps carry the solvers' rounding and the run-dependent order of
    CUDA index_add_ into mm-level differences, printed beside a rerun's).
-   Median per-frame time with kernels and with plain versions.
+   Median per-frame time with kernels and with plain versions. Then the
+   engine's LM program as CUDA graphs (``programs.OptProgram`` with
+   marginalization) over the five frames twice, at LM bounds that change
+   between calls: eager, capture, then replays, each held to the eager
+   program (``GRAPH_TOL``), B1 launched once per LM iteration, the replay
+   counter rising on every call but the first; host ms a call, eager and
+   replayed in turns.
 
 4. Engine: the port's ``VioEngine.add_frame`` (the serial path) at the
    shipped underwater configuration (``configs/underwater_sonar_depth.yaml``:
@@ -281,7 +287,7 @@ import numpy as np
 import torch
 
 from svin_tpu_torch import problems, sim
-from svin_tpu_torch.convert import tree_to
+from svin_tpu_torch.convert import to_numpy_tree, tree_to
 from svin_tpu_torch.estimator import WindowConfig, optimize, rig_params
 from svin_tpu_torch.kinematics import Transformation
 from svin_tpu_torch.evaluation import ate_rmse
@@ -291,7 +297,7 @@ from svin_tpu_torch.pipeline import (BackendStep, VioEngine, load_config, progra
                                      synthetic_sequence)
 from svin_tpu_torch.pipeline.async_vio import AsyncVioEngine
 from svin_tpu_torch.pipeline.checkpoint import load_engine, save_engine
-from svin_tpu_torch.utils import Timing
+from svin_tpu_torch.utils import Timing, timing
 from svin_tpu_torch.utils.timing import device_profile_summary
 
 N_FRAMES = 5
@@ -869,6 +875,69 @@ def slice_phase(dev) -> dict:
             p_ms.append(step_ms(plain, c))
     log(f"per-frame step: kernels median {statistics.median(k_ms):.2f} ms, "
         f"plain median {statistics.median(p_ms):.2f} ms ({len(k_ms)} runs each)")
+    graph_launches = opt_graph_check(cases, rig, step.imu_p)
+    return {k: launches[k] + graph_launches[k] for k in launches}
+
+
+# the LM program replayed against eager (positions and landmarks in m, cost
+# relative): each run sums CUDA index_add_ in its own order, and ten f32 LM
+# steps carry that into mm-level differences along weakly observed
+# directions (a kernel rerun above moves positions by up to 1.5e-3 m), so
+# the slice's bounds for the plain solver, landmarks at ten times positions
+GRAPH_TOL = {"r": 5e-3, "hp_W": 5e-2, "cost": 1e-2}
+GRAPH_ITERS = (10, 10, 6, 10, 3)  # n_it per call: the bound changes between replays
+
+
+def opt_graph_check(cases, rig, imu_p) -> dict:
+    """The slice's frames through the engine's LM program as CUDA graphs
+    (``programs.OptProgram`` with marginalization), twice over: the first
+    call eager, the second captures, every later one replays. Each call is
+    held to the eager ``programs.opt_program`` on the same frame (within
+    GRAPH_TOL, the same valid slots), launches B1 once per LM iteration,
+    and the replay counter rises on every call but the first; then host ms
+    a call, eager and replayed in turns, the device synchronized after
+    each. Returns the graphed program's launches (the eager reference's
+    are not counted)."""
+    prog = programs.OptProgram(rig, imu_p, CFG, True)
+    ref = programs.opt_program(rig, imu_p, CFG, True)
+    before = timing.counters()
+    launches = dict.fromkeys(COUNTERS, 0)  # the graphed program's alone
+    worst = dict.fromkeys(GRAPH_TOL, 0.0)
+    calls = list(zip(cases + cases, GRAPH_ITERS + GRAPH_ITERS))
+    for i, (c, n_it) in enumerate(calls):
+        args = (c["w"], c["f"], n_it, c["victim"])
+        k0 = read_counts()
+        got = to_numpy_tree(prog(*args))
+        k1 = read_counts()
+        if k1["spd_solve_chol"] - k0["spd_solve_chol"] != CFG.max_iterations:
+            raise AssertionError(f"graph call {i}: B1 launched "
+                                 f"{k1['spd_solve_chol'] - k0['spd_solve_chol']} times")
+        launches = {k: launches[k] + k1[k] - k0[k] for k in launches}
+        want = to_numpy_tree(ref(*args))
+        lv = want[0].lm_valid
+        d = {"r": float(np.abs(got[0].r - want[0].r).max()),
+             "hp_W": float(np.abs(got[0].hp_W[lv] - want[0].hp_W[lv]).max(initial=0.0)),
+             "cost": float(abs(got[2] - want[2]) / abs(want[2]))}
+        if not (all(d[k] <= GRAPH_TOL[k] for k in d) and np.array_equal(lv, got[0].lm_valid)):
+            raise AssertionError(f"graph call {i} (n_it {n_it}) vs eager: {d}")
+        worst = {k: max(worst[k], d[k]) for k in d}
+    after = timing.counters()
+    delta = {k: after.get(k, 0) - before.get(k, 0) for k in ("opt.graph_capture", "opt.graph_replay")}
+    if delta != {"opt.graph_capture": 1, "opt.graph_replay": len(calls) - 1}:
+        raise AssertionError(f"graph counters: {delta}")
+    e_ms, g_ms = [], []
+    for c in cases:  # eager, replay, replay, eager
+        args = (c["w"], c["f"], CFG.max_iterations, c["victim"])
+        for ms, fn in ((e_ms, ref), (g_ms, prog), (g_ms, prog), (e_ms, ref)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    log(f"LM program as CUDA graphs: {len(calls)} calls (1 eager, 1 capture, {delta['opt.graph_replay']} "
+        f"replays) within {GRAPH_TOL} of eager, worst {worst}; host ms a call, synchronized: "
+        f"eager median {statistics.median(e_ms):.2f}, replayed median {statistics.median(g_ms):.2f} "
+        f"({len(e_ms)} each)")
     return launches
 
 

@@ -17,6 +17,9 @@ The LM loop is a Python loop of ``cfg.max_iterations`` steps with
 ``torch.where`` selects and no host synchronisation; iterations at or past
 ``n_iters`` leave the state bit-identical. Spans (``utils.timing``): the
 first assembly, each iteration, and the landmark qualities and covariances.
+The loop's pieces (``lm_start``, ``lm_reduce``, the solve,
+``lm_back_substitute``, ``lm_update``, ``lm_result``) are what
+``pipeline/programs.py::OptProgram`` replays between its solves.
 """
 from __future__ import annotations
 
@@ -211,11 +214,12 @@ def total_cost(
     return cost
 
 
-def _solve_step(
+def lm_reduce(
     eqs: NormalEqs, window: WindowState, lam: torch.Tensor, cfg: WindowConfig,
-    solve=solve_spd,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One damped Schur-complement solve → (δx (Dx,), δl (L,3))."""
+):
+    """The damped Schur reduction of one LM step, Jacobi-equilibrated: (Hs,
+    s·bred), the system the dense solve takes, and (s, Hll⁻¹), which the
+    back-substitution needs."""
     D = eqs.H.shape[0]
     dtype, device = eqs.H.dtype, eqs.H.device
 
@@ -250,9 +254,25 @@ def _solve_step(
     floor = 1e-10 * torch.clamp(torch.max(dHr), min=1e-12)
     s = torch.rsqrt(torch.maximum(dHr, floor))
     Hs = Hred * (s[:, None] * s[None, :])
-    dx = -(s * solve(Hs, s * bred))
+    return Hs, s * bred, s, Hll_inv
+
+
+def lm_back_substitute(
+    eqs: NormalEqs, s: torch.Tensor, Hll_inv: torch.Tensor, y: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The solve's answer y of ``lm_reduce``'s system → (δx (Dx,), δl (L,3))."""
+    dx = -(s * y)
     dl = -(Hll_inv @ (eqs.bl + (eqs.W @ dx))[..., None])[..., 0]
     return dx, dl
+
+
+def _solve_step(
+    eqs: NormalEqs, window: WindowState, lam: torch.Tensor, cfg: WindowConfig,
+    solve=solve_spd,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One damped Schur-complement solve → (δx (Dx,), δl (L,3))."""
+    Hs, sb, s, Hll_inv = lm_reduce(eqs, window, lam, cfg)
+    return lm_back_substitute(eqs, s, Hll_inv, solve(Hs, sb))
 
 
 def apply_step(window: WindowState, dx: torch.Tensor, dl: torch.Tensor) -> WindowState:
@@ -294,6 +314,53 @@ class OptimizeResult(NamedTuple):
     lm_cov: torch.Tensor = None
 
 
+class LMState(NamedTuple):
+    """What the LM loop carries from one iteration to the next."""
+
+    window: WindowState
+    eqs: NormalEqs  # the normal equations at ``window``
+    lam: torch.Tensor  # () damping
+    n_acc: torch.Tensor  # () accepted steps, int32
+
+
+def lm_start(window, factors, rig, imu_params, cfg, lam0: float = 1e-4) -> LMState:
+    """The LM loop's state before its first iteration: the first assembly."""
+    dtype, device = window.r.dtype, window.r.device
+    eqs = assemble(window, factors, rig, imu_params, cfg)
+    lam = torch.full((), lam0, dtype=dtype, device=device)
+    n_acc = torch.zeros((), dtype=torch.int32, device=device)
+    return LMState(window, eqs, lam, n_acc)
+
+
+def lm_update(st: LMState, dx, dl, i: int, bound: torch.Tensor, factors, rig, imu_params,
+              cfg) -> LMState:
+    """Iteration ``i``'s candidate, its assembly and the masked accept/reject
+    (iterations at or past ``bound`` leave the state bit-identical)."""
+    cand = apply_step(st.window, dx, dl)
+    eqs_cand = assemble(cand, factors, rig, imu_params, cfg)
+    accept = (eqs_cand.cost < st.eqs.cost) & (bound > i)
+    return LMState(
+        window=select(accept, cand, st.window),
+        eqs=select(accept, eqs_cand, st.eqs),
+        lam=torch.where(accept, torch.clamp(st.lam / 3.0, min=1e-9), st.lam * 4.0),
+        n_acc=st.n_acc + accept.to(torch.int32),
+    )
+
+
+def lm_result(st: LMState, cost0: torch.Tensor) -> OptimizeResult:
+    """The landmark qualities and conditional covariances at the loop's end."""
+    win, Hll = st.window, st.eqs.Hll
+    eye3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
+    # landmark quality = sqrt(λmin/λmax) of the 3x3 landmark Hessian
+    evs = eigvalsh3x3(Hll + 1e-12 * eye3)
+    quality = torch.sqrt(torch.clamp(evs[:, 0], min=0) / torch.clamp(evs[:, 2], min=1e-12))
+    win = win._replace(lm_quality=torch.where(win.lm_valid, quality, torch.zeros_like(quality)))
+    lm_cov = inv3x3(Hll + 1e-6 * eye3)
+    return OptimizeResult(
+        window=win, cost0=cost0, cost=st.eqs.cost, iterations=st.n_acc, lm_cov=lm_cov,
+    )
+
+
 def optimize(
     window: WindowState,
     factors: Factors,
@@ -311,35 +378,14 @@ def optimize(
     a 0-d tensor) freezes the state after that many iterations without
     changing the loop's length. ``solve`` is the dense SPD solver (the
     dispatching wrapper by default)."""
-    dtype, device = window.r.dtype, window.r.device
     with Timer("3.1.1.0 lm_assemble"):
         bound = device_scalar(cfg.max_iterations if n_iters is None else n_iters, torch.int32,
-                              device)
-        eqs = assemble(window, factors, rig, imu_params, cfg)
-        cost0 = eqs.cost
-        win = window
-        lam = torch.full((), lam0, dtype=dtype, device=device)
-        n_acc = torch.zeros((), dtype=torch.int32, device=device)
+                              window.r.device)
+        st = lm_start(window, factors, rig, imu_params, cfg, lam0)
+        cost0 = st.eqs.cost
     for i in range(cfg.max_iterations):
         with Timer("3.1.1.1 lm_iteration"):
-            dx, dl = _solve_step(eqs, win, lam, cfg, solve)
-            cand = apply_step(win, dx, dl)
-            eqs_cand = assemble(cand, factors, rig, imu_params, cfg)
-            accept = (eqs_cand.cost < eqs.cost) & (bound > i)
-            win = select(accept, cand, win)
-            eqs = select(accept, eqs_cand, eqs)
-            lam = torch.where(accept, torch.clamp(lam / 3.0, min=1e-9), lam * 4.0)
-            n_acc = n_acc + accept.to(torch.int32)
-
+            dx, dl = _solve_step(st.eqs, st.window, st.lam, cfg, solve)
+            st = lm_update(st, dx, dl, i, bound, factors, rig, imu_params, cfg)
     with Timer("3.1.1.2 lm_covariance"):
-        Hll = eqs.Hll
-        eye3 = torch.eye(3, dtype=Hll.dtype, device=device)
-        # landmark quality = sqrt(λmin/λmax) of the 3x3 landmark Hessian
-        evs = eigvalsh3x3(Hll + 1e-12 * eye3)
-        quality = torch.sqrt(torch.clamp(evs[:, 0], min=0) / torch.clamp(evs[:, 2], min=1e-12))
-        win = win._replace(lm_quality=torch.where(win.lm_valid, quality,
-                                                  torch.zeros_like(quality)))
-        lm_cov = inv3x3(Hll + 1e-6 * eye3)
-    return OptimizeResult(
-        window=win, cost0=cost0, cost=eqs.cost, iterations=n_acc, lm_cov=lm_cov,
-    )
+        return lm_result(st, cost0)

@@ -22,7 +22,8 @@ and calls these):
 - ``opt_program`` (``_make_opt_program``): optimize (the B1 kernel solves
   each LM step on CUDA) → marginalize the host-chosen victim slot → the
   octave-normalized reprojection error of every observation for outlier
-  pruning.
+  pruning. ``OptProgram`` is the engine's form of it: the same functions
+  cut at each solve, replayed as CUDA graphs on a CUDA window.
 
 The RANSAC stages take a ``draw(valid, num_hypotheses, sample_size)``
 callable that returns the (H, s) sample indices on the device (the JAX
@@ -31,6 +32,7 @@ program for one frame.
 """
 from __future__ import annotations
 
+import gc
 import math
 from typing import NamedTuple
 
@@ -38,6 +40,8 @@ import torch
 from torch import nn
 
 from ..cameras import PinholeCamera, back_project, project, project_jacobian
+from ..convert import _map_tensors
+from ..estimator import gauss_newton as gn
 from ..estimator import (
     Factors,
     RigParams,
@@ -47,6 +51,7 @@ from ..estimator import (
     marginalize_slot,
     optimize,
 )
+from ..estimator.window import device_scalar
 from ..frontend import (
     absolute_pose_ransac,
     point_from_homogeneous,
@@ -61,6 +66,7 @@ from ..ops import descriptor as desc_ops, detection, image as image_ops
 from ..ops.hamming import match_descriptors
 from ..ops.solve import solve_spd
 from ..problems import Frame
+from ..utils import timing
 from ..utils.timing import Timer
 
 # per-keypoint sqrt information at octave 0 (sigma = 1 px)
@@ -385,6 +391,198 @@ def opt_program(rig: RigParams, imu_p: ImuParameters, cfg: WindowConfig,
                 pv, pe = reproj_px_err(r.window, f, rig, cfg)
             return (r.window, r.cost, r.iterations, r.lm_cov, pv, pe)
     return prog
+
+
+def _leaves(tree) -> list:
+    """The tensor leaves of a NamedTuple tree, in field order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in _leaves(x)]
+    return []
+
+
+def _copy_into(dst, src) -> None:
+    """Copy every tensor leaf of ``src`` into ``dst``'s (one tree shape):
+    one ``_foreach_copy_`` per dtype."""
+    groups = {}
+    for d, s in zip(_leaves(dst), _leaves(src), strict=True):
+        ds, ss = groups.setdefault(d.dtype, ([], []))
+        ds.append(d)
+        ss.append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+class OptProgram:
+    """``opt_program``'s program, the same arithmetic cut at each window
+    solve. prog(w, f, n_it) or, with ``with_marg``, prog(w, f, n_it,
+    victim): the outputs of ``opt_program``.
+
+    Segments, each a run of the eager functions with no host sync:
+    ``0`` the first assembly and iteration 0's Schur reduction, up to the
+    solve's inputs; ``1..n-1`` iteration i-1's back-substitution, update
+    and masked accept/reject, then iteration i's reduction; ``n`` the last
+    iteration's back-substitution and update; ``n+1`` the landmark
+    qualities and covariances; ``n+2`` the prune errors. Between them the
+    dense solve (``solve``, a Python call on every iteration) and, with
+    ``with_marg``, the marginalization (its ``eigh`` and host reads sync)
+    run eagerly.
+
+    On a CPU window the program is ``opt_program``'s eager code. On a CUDA
+    window the first call with given input shapes is eager too (it sets up
+    cuBLAS and the allocator); the second captures each segment as a CUDA
+    graph, on a side stream, into one memory pool, in the caller's
+    precision settings (the engine calls it inside its float32 block);
+    that call and every later one copy the inputs into the graphs' static
+    inputs (the iteration bound among them) and replay the graphs on the
+    current stream, the solve's answer copied into the next graph's input. A replay's outputs are the graphs' static tensors: read
+    them before the program's next call. Counters: ``opt.graph_capture``
+    per capture, ``opt.graph_replay`` per call that replayed."""
+
+    def __init__(self, rig: RigParams, imu_p: ImuParameters, cfg: WindowConfig,
+                 with_marg: bool, solve=solve_spd):
+        self.rig, self.imu_p, self.cfg = rig, imu_p, cfg
+        self.with_marg, self.solve = with_marg, solve
+        self.eager = opt_program(rig, imu_p, cfg, with_marg, solve)
+        self._sig = None  # the device, shapes and dtypes of the last call's inputs
+        # the captured graphs, their static inputs and, per segment, the
+        # values it leaves for the eager code after it
+        self._graphs = self._io = self._outs = None
+
+    # ---------------------------------------------------------- segments
+    def _reduce(self, io) -> None:
+        lm = io["lm"]
+        io["Hs"], io["sb"], io["s"], io["Hll_inv"] = gn.lm_reduce(lm.eqs, lm.window, lm.lam,
+                                                                  self.cfg)
+
+    def _head(self, io) -> None:
+        io["lm"] = gn.lm_start(io["w"], io["f"], self.rig, self.imu_p, self.cfg)
+        io["cost0"] = io["lm"].eqs.cost
+        self._reduce(io)
+
+    def _step(self, io, i: int) -> None:
+        lm = io["lm"]
+        dx, dl = gn.lm_back_substitute(lm.eqs, io["s"], io["Hll_inv"], io["x"])
+        io["lm"] = gn.lm_update(lm, dx, dl, i, io["bound"], io["f"], self.rig, self.imu_p,
+                                self.cfg)
+        if i + 1 < self.cfg.max_iterations:
+            self._reduce(io)
+
+    def _covariance(self, io) -> None:
+        io["res"] = gn.lm_result(io["lm"], io["cost0"])
+
+    def _prune(self, io) -> None:
+        w, f = (io["pw"], io["pf"]) if self.with_marg else (io["res"].window, io["f"])
+        io["pv"], io["pe"] = reproj_px_err(w, f, self.rig, self.cfg)
+
+    def _segments(self) -> list:
+        n = self.cfg.max_iterations
+        return ([self._head] + [lambda io, i=i: self._step(io, i) for i in range(n)]
+                + [self._covariance, self._prune])
+
+    # ------------------------------------------------------------- calls
+    def _run(self, io, run, put, w, f, n_it, victim):
+        """One call: ``run(k)`` runs segment k (eagerly or by replaying its
+        graph); ``put(keys, values)`` hands the segments values made
+        outside them."""
+        n = self.cfg.max_iterations
+        with Timer("3.1.1.0 lm_assemble"):
+            put(("w", "f", "bound"), (w, f, device_scalar(n_it, torch.int32, w.r.device)))
+            run(0)
+        for i in range(n):
+            with Timer("3.1.1.1 lm_iteration"):
+                put(("x",), (self.solve(io["Hs"], io["sb"]),))
+                run(i + 1)
+        with Timer("3.1.1.2 lm_covariance"):
+            run(n + 1)
+        res = io["res"]
+        if self.with_marg:
+            with Timer("3.1.1.3 marginalize"):
+                w2, f2 = marginalize_slot(res.window, io["f"], victim, self.rig, self.imu_p,
+                                          self.cfg)
+            with Timer("3.1.1.4 prune_errors"):
+                put(("pw", "pf"), (w2, f2))
+                run(n + 2)
+            return (w2, f2, res.cost, res.iterations, res.lm_cov, io["pv"], io["pe"])
+        with Timer("3.1.1.4 prune_errors"):
+            run(n + 2)
+        return (res.window, res.cost, res.iterations, res.lm_cov, io["pv"], io["pe"])
+
+    def segmented(self, w, f, n_it, victim=None):
+        """The segments run eagerly, on any device (what a replay runs)."""
+        io, segs = {}, self._segments()
+
+        def put(keys, values):
+            io.update(zip(keys, values))
+
+        return self._run(io, lambda k: segs[k](io), put, w, f, n_it, victim)
+
+    def __call__(self, w, f, n_it, victim=None):
+        if w.r.device.type != "cuda" or not self._replays(w, f):
+            return self.eager(w, f, n_it, *(() if victim is None else (victim,)))
+        io, graphs, outs = self._io, self._graphs, self._outs
+
+        def run(k):
+            graphs[k].replay()
+            io.update(outs[k])
+
+        def put(keys, values):
+            _copy_into(tuple(io[k] for k in keys), values)
+
+        timing.count("opt.graph_replay")
+        return self._run(io, run, put, w, f, n_it, victim)
+
+    def _replays(self, w, f) -> bool:
+        """Whether this CUDA call replays: the first call with these input
+        shapes runs eagerly, the second captures."""
+        sig = (w.r.device, tuple((t.shape, t.dtype) for t in _leaves((w, f))))
+        if sig != self._sig:
+            self._sig, self._graphs = sig, None
+            return False
+        if self._graphs is None:
+            self._capture(w, f)
+        return True
+
+    def _capture(self, w, f) -> None:
+        """Capture every segment against static inputs shaped as (w, f), in
+        the caller's precision settings (the engine's float32 block)."""
+        dev = w.r.device
+        cfg = self.cfg
+        dim = cfg.full_dim if cfg.estimate_extrinsics else cfg.state_dim
+        io = {"w": _map_tensors(w, torch.clone), "f": _map_tensors(f, torch.clone),
+              "bound": torch.zeros((), dtype=torch.int32, device=dev),
+              "x": torch.zeros(dim, dtype=w.r.dtype, device=dev)}
+        if self.with_marg:
+            io["pw"], io["pf"] = _map_tensors((w, f), torch.clone)
+        pool = torch.cuda.graph_pool_handle()
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graphs, outs = [], []
+        # freeing a graph inside a capture ends the capture (CUDAGraph.reset
+        # is not permitted then), and the collector may free another
+        # program's (a dropped engine's): collect first, and not during
+        # (tests/test_torch_cuda.py::test_capture_holds_the_collector_off)
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                for seg in self._segments():
+                    g = torch.cuda.CUDAGraph()
+                    g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                    try:
+                        seg(io)
+                    finally:
+                        g.capture_end()
+                    graphs.append(g)
+                    outs.append(dict(io))
+        finally:
+            if gc_on:
+                gc.enable()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self._io, self._graphs, self._outs = io, graphs, outs
+        timing.count("opt.graph_capture")
 
 
 class StepOutput(NamedTuple):

@@ -685,11 +685,12 @@ class VioEngine:
 
     def _opt_program_for(self, n_it: int, with_marg: bool):
         """The optimize program with the shortest static LM bound covering
-        this frame's budget."""
+        this frame's budget (``programs.OptProgram``: CUDA graphs on a card,
+        the eager program on the CPU)."""
         bound = next((b for b in self._opt_bounds if b >= n_it), self._opt_bounds[-1])
         key = (bound, with_marg)
         if key not in self._opt_programs:
-            self._opt_programs[key] = programs.opt_program(
+            self._opt_programs[key] = programs.OptProgram(
                 self.rig_p, self.cfg.imu, self.wcfg._replace(max_iterations=bound), with_marg,
                 solve=self.solve)
         return self._opt_programs[key], bound
