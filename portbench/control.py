@@ -14,15 +14,18 @@ Variants:
 - ``sound``: the program as it is.
 - ``tf32``: the control, at the next precision below the program's (float32
   with TF32 off): the program's own TF32 path switched on (TF32 matmuls in
-  the engine and the closer), and the window solve's and the pose graph's
-  float inputs rounded to TF32's 10-bit mantissa before their float32
+  the engine, the closer and the scalable pose graph, whose own guard is
+  bypassed), and the window solve's and both pose-graph solves' float
+  inputs rounded to TF32's 10-bit mantissa before their float32
   computation, the operand rounding a TF32 factorization puts on them.
 - ``frozen``: the window solve returns a zero step, so the LM leaves the
   state as the IMU predicted it (a step that returns its state unchanged).
 - ``match_shift``: the engine's matcher answers each keypoint with its
   neighbour's match (an answer altered where it is produced).
-- ``pg_shift``: the pose graph's solve returns its positions 5 cm off (an
-  answer altered where it is produced).
+- ``pg_shift``: the pose graph's solve, dense or scalable, returns its
+  positions 5 cm off (an answer altered where it is produced).
+- ``pg_frozen``: the pose graph's solve, dense or scalable, returns the
+  nodes it was given (a step that returns its state unchanged).
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ def round_tf32(x):
 def _tf32(engine, closer):
     import torch
     from svin_tpu_torch.loopclosure import loop_closure
+    from svin_tpu_torch.parallel import pcg
     from svin_tpu_torch.pipeline import vio
 
     @contextlib.contextmanager
@@ -70,6 +74,16 @@ def _tf32(engine, closer):
                         iters=iters)
 
     loop_closure.optimize_4dof = optimize_tf32
+    optimize_pcg = pcg.optimize_4dof_pcg
+    unguarded = getattr(optimize_pcg, "__wrapped__", optimize_pcg)  # without its TF32-off block
+
+    def optimize_pcg_tf32(nodes, edges, fix_before, **kw):
+        r = lambda t: round_tf32(t) if t.is_floating_point() else t  # noqa: E731
+        with tf32_matmuls():
+            return unguarded(type(nodes)(*map(r, nodes)), type(edges)(*map(r, edges)), fix_before,
+                             **kw)
+
+    pcg.optimize_4dof_pcg = optimize_pcg_tf32
 
 
 def _frozen(engine, closer):
@@ -92,26 +106,44 @@ def _match_shift(engine, closer):
 
 def _pg_shift(engine, closer):
     from svin_tpu_torch.loopclosure import loop_closure
+    from svin_tpu_torch.parallel import pcg
 
-    optimize = loop_closure.optimize_4dof
+    def shift(optimize):
+        def shifted(nodes, edges, fix_before, **kw):
+            out = optimize(nodes, edges, fix_before, **kw)
+            return out._replace(p=out.p + 0.05)
 
-    def shifted(nodes, edges, fix_before, iters=10):
-        out = optimize(nodes, edges, fix_before, iters=iters)
-        return out._replace(p=out.p + 0.05)
+        return shifted
 
-    loop_closure.optimize_4dof = shifted
+    loop_closure.optimize_4dof = shift(loop_closure.optimize_4dof)
+    pcg.optimize_4dof_pcg = shift(pcg.optimize_4dof_pcg)
+
+
+def _pg_frozen(engine, closer):
+    from svin_tpu_torch.loopclosure import loop_closure
+    from svin_tpu_torch.parallel import pcg
+
+    def frozen(nodes, edges, fix_before, **kw):
+        return nodes
+
+    loop_closure.optimize_4dof = pcg.optimize_4dof_pcg = frozen
 
 
 VARIANTS = {"sound": None, "tf32": _tf32, "frozen": _frozen, "match_shift": _match_shift,
-            "pg_shift": _pg_shift}
+            "pg_shift": _pg_shift, "pg_frozen": _pg_frozen}
 
 
 def run_variant(workload, seed, seconds, variant, root=".", device=None, trace=0):
-    """(rc, result dict or None) of one run under ``variant``."""
+    """(rc, result dict or None) of one run under ``variant``; the program's
+    patched names and the TF32 flags are put back afterwards."""
+    import torch
     from svin_tpu_torch.loopclosure import loop_closure
+    from svin_tpu_torch.parallel import pcg
     from svin_tpu_torch.pipeline import vio
 
-    saved = vio._float32_matmuls, loop_closure._float32_matmuls, loop_closure.optimize_4dof
+    saved = (vio._float32_matmuls, loop_closure._float32_matmuls, loop_closure.optimize_4dof,
+             pcg.optimize_4dof_pcg)
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
@@ -119,7 +151,9 @@ def run_variant(workload, seed, seconds, variant, root=".", device=None, trace=0
                              str(seconds), "--trace", str(trace)], root=root, device=device,
                             patch=VARIANTS[variant])
     finally:
-        vio._float32_matmuls, loop_closure._float32_matmuls, loop_closure.optimize_4dof = saved
+        (vio._float32_matmuls, loop_closure._float32_matmuls, loop_closure.optimize_4dof,
+         pcg.optimize_4dof_pcg) = saved
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
     lines = out.getvalue().strip().splitlines()
     return rc, (json.loads(lines[-1]) if rc == 0 and lines else None)
 

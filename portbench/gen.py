@@ -21,6 +21,12 @@ the program, so a later change to the program cannot move the yardstick.
 - Laps: a trajectory without forward speed is periodic in ``lap_s`` once
   the ramp is over, so one lap is rendered and its images are replayed with
   new timestamps; the IMU is sampled over the whole sequence.
+- Prior map: a mix with ``prior_keyframes`` hands the closer a prior
+  session's keyframes along the mix's own path from the first frame past
+  the ramp (``build_prior``). A lap mix draws them from its one lap; a mix
+  without ``lap_s`` lays them along the path as far as they reach, past the
+  window's frames where needed (those rendered for cam0 alone), and its
+  window then flies the start of that path again.
 
 Everything random comes from ``numpy.random.default_rng`` streams: the
 scene's places from the mix's ``scene_seed``, the blobs' looks (dealt from
@@ -30,7 +36,7 @@ same sequence on any machine, and every seed the same geometry.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import List, Optional
 
 import numpy as np
@@ -373,9 +379,11 @@ def make_sequence(rig: Rig, traffic: dict, seed: int, device="cpu") -> Sequence:
     n_frames = int(traffic["frames"])
     frame_t = t_first + dt_f * np.arange(n_frames)
     lap = traffic.get("lap_s")
+    k0 = int(np.searchsorted(frame_t, traj.ramp_tau))  # the first frame past the ramp
+    n_prior = int(traffic.get("prior_keyframes") or 0)
+    t_path = frame_t[-1]
     if lap:
         # the first frame past the ramp starts the lap; later frames replay it
-        k0 = int(np.searchsorted(frame_t, traj.ramp_tau))
         per = int(round(float(lap) * rig.cam_rate))
         if abs(per * dt_f - float(lap)) > 1e-9:
             raise ValueError("lap_s must be a whole number of frames")
@@ -385,9 +393,12 @@ def make_sequence(rig: Rig, traffic: dict, seed: int, device="cpu") -> Sequence:
     else:
         uniq = np.arange(n_frames)
         frame_img = uniq.copy()
+        if n_prior:  # the prior's keyframes reach past the window's frames
+            last = k0 + int(traffic["prior_every_frames"]) * (n_prior - 1)
+            t_path = max(t_path, t_first + dt_f * last)
 
     # the scene box over the whole path, with margins for the field of view
-    path = traj.position(np.linspace(0.0, frame_t[-1] + 1.0, 4000))
+    path = traj.position(np.linspace(0.0, t_path + 1.0, 4000))
     m = float(traffic["margin_xy_m"])
     lo = np.array([path[:, 0].min() - m, path[:, 1].min() - m, traffic["blob_z_m"][0]])
     hi = np.array([path[:, 0].max() + m, path[:, 1].max() + m, traffic["blob_z_m"][1]])
@@ -427,29 +438,38 @@ def make_sequence(rig: Rig, traffic: dict, seed: int, device="cpu") -> Sequence:
         off = np.cumsum(float(walk) * steps / math.sqrt(max(rig.cam_rate, 1.0)), 0)
         seq.primitive = [(float(frame_t[k]), (p_f[k] + off[k], quat_of(R_f[k])))
                          for k in range(n_frames)]
-    if traffic.get("prior_keyframes"):
-        build_prior(seq, traffic, k0)
+    if n_prior:
+        build_prior(seq, traffic, k0, device=device)
     return seq
 
 
-def build_prior(seq: Sequence, traffic: dict, k0: int) -> None:
-    """A prior session over one lap, as a resumed map holds it: one keyframe
-    every ``prior_every_frames`` lap frames, each with its rendered cam0
-    image, keypoints at the visible blobs' projections (up to
-    ``prior_points``), their ids and positions, the pose of the true camera,
-    and an accumulated drift of ``prior_drift_m`` per keyframe on the pose and
-    the points alike. Timestamps lie ``prior_t_shift_s`` before the lap's."""
+def build_prior(seq: Sequence, traffic: dict, k0: int, device="cpu") -> None:
+    """A prior session along the path, as a resumed map holds it: one
+    keyframe every ``prior_every_frames`` path frames from frame ``k0``, each
+    with its rendered cam0 image, keypoints at the visible blobs' projections
+    (up to ``prior_points``), their ids and positions, the pose of the true
+    camera, and an accumulated drift of ``prior_drift_m`` per keyframe on the
+    pose and the points alike. Timestamps lie ``prior_t_shift_s`` before the
+    path's. A lap mix's keyframes lie within its one lap; a mix without
+    ``lap_s`` renders those past the window's frames for cam0 at their own
+    times."""
     rig, cam = seq.rig, seq.rig.cameras[0]
     n = int(traffic["prior_keyframes"])
     every = int(traffic["prior_every_frames"])
     step = np.asarray(traffic["prior_drift_m"], float)
     cap = int(traffic["prior_points"])
-    frames = k0 + every * np.arange(n)  # lap frames, rendered whatever the sequence's length
-    if frames[-1] >= len(seq.images):
+    frames = k0 + every * np.arange(n)  # path frames, rendered whatever the sequence's length
+    beyond = frames >= len(seq.images)
+    if traffic.get("lap_s") and beyond.any():
         raise ValueError("the prior map spans more than one lap")
     t_f = float(traffic["t_first_frame_s"]) + frames / seq.rig.cam_rate
     R_WS, p_WS = seq.truth(t_f)
     R_WC, p_WC = camera_poses(rig, R_WS, p_WS, 0)
+    extra = np.empty((0, cam.height, cam.width), np.uint8)
+    if beyond.any():
+        cam0 = replace(rig, cameras=[cam])
+        extra = render(cam0, seq.scene, R_WS[beyond], p_WS[beyond], device=device)[:, 0]
+    extra_of = np.cumsum(beyond) - 1  # a frame past the window: its row of ``extra``
     seen: List[set] = []
     for i, f in enumerate(frames):
         p_C = (seq.scene.points - p_WC[i]) @ R_WC[i]
@@ -464,7 +484,7 @@ def build_prior(seq: Sequence, traffic: dict, k0: int) -> None:
         qy = (uv[ids, 1] >= cam.height / 2).astype(int)
         seq.prior.append({
             "kf_index": i, "timestamp": float(t_f[i]) - float(traffic["prior_t_shift_s"]),
-            "image": seq.images[f, 0],
+            "image": extra[extra_of[i]] if beyond[i] else seq.images[f, 0],
             "T_WC_r": p_WC[i] + d, "T_WC_q": quat_of(R_WC[i]),
             "points_W": seq.scene.points[ids] + d, "landmark_ids": ids.astype(np.int32),
             "keypoints_uv": uv[ids].astype(np.float32), "quality": np.full(len(ids), 0.5),

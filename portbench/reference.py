@@ -177,32 +177,47 @@ def _ypr_to_R(yaw, pitch, roll):
     ], -2)
 
 
-def pose_graph_4dof(nodes: dict, edges: dict, fix_before: int, iters: int):
+def _pg4_residual(p, yaw, pitch, roll, ei, ej, t_ij, yaw_ij):
+    """(R_i^T per edge, p_j - p_i, the 4-DoF residual (E, 4)) at (p, yaw):
+    R_i^T (p_j - p_i) - t_ij and YAW_WEIGHT (yaw_j - yaw_i - yaw_ij) wrapped."""
+    Rt = np.swapaxes(_ypr_to_R(yaw[ei], pitch[ei], roll[ei]), -1, -2)
+    dp = p[ej] - p[ei]
+    r_t = np.einsum("eab,eb->ea", Rt, dp) - t_ij
+    r_y = np.arctan2(np.sin(yaw[ej] - yaw[ei] - yaw_ij), np.cos(yaw[ej] - yaw[ei] - yaw_ij))
+    return Rt, dp, np.concatenate([r_t, YAW_WEIGHT * r_y[:, None]], axis=1)
+
+
+def _pg4_graph(nodes: dict, edges: dict):
+    """The graph's arrays in float64: (p, yaw, pitch, roll, valid, ei, ej,
+    t_ij, yaw_ij, weight, is_loop, e_valid)."""
+    return (np.asarray(nodes["p"], np.float64).copy(), np.asarray(nodes["yaw"], np.float64).copy(),
+            *(np.asarray(nodes[k], np.float64) for k in ("pitch", "roll")),
+            np.asarray(nodes["valid"], bool),
+            *(np.asarray(edges[k], np.int64) for k in ("i", "j")),
+            np.asarray(edges["t_ij"], np.float64), np.asarray(edges["yaw_ij"], np.float64),
+            np.asarray(edges["weight"], np.float64), np.asarray(edges["is_loop"], bool),
+            np.asarray(edges["valid"], bool))
+
+
+def pose_graph_4dof(nodes: dict, edges: dict, fix_before: int, iters: int, sparse: bool = False):
     """(p, yaw) after ``iters`` Gauss-Newton steps on the 4-DoF pose graph
     (position and yaw per node, pitch and roll held; nodes below
     ``fix_before`` and invalid ones fixed), in float64: residual per edge
     R_i^T (p_j - p_i) - t_ij and YAW_WEIGHT (yaw_j - yaw_i - yaw_ij)
     wrapped; loop edges under Huber(HUBER_DELTA) by IRLS; the normal
-    equations damped by 1e-6 max(diag, 1), Jacobi-scaled and solved."""
-    p = np.asarray(nodes["p"], np.float64).copy()
-    yaw = np.asarray(nodes["yaw"], np.float64).copy()
-    pitch, roll = (np.asarray(nodes[k], np.float64) for k in ("pitch", "roll"))
+    equations damped by 1e-6 max(diag, 1), Jacobi-scaled and solved: dense
+    by NumPy, or with ``sparse`` (graphs past the dense solve's 512 nodes,
+    where a dense step takes seconds) over the free coordinates alone by
+    SciPy's sparse LU, the same equations."""
+    p, yaw, pitch, roll, valid, ei, ej, t_ij, yaw_ij, weight, is_loop, e_valid = _pg4_graph(
+        nodes, edges)
     N = p.shape[0]
-    ei, ej = (np.asarray(edges[k], np.int64) for k in ("i", "j"))
-    t_ij = np.asarray(edges["t_ij"], np.float64)
-    yaw_ij = np.asarray(edges["yaw_ij"], np.float64)
-    weight = np.asarray(edges["weight"], np.float64)
-    is_loop, e_valid = np.asarray(edges["is_loop"], bool), np.asarray(edges["valid"], bool)
-    free = np.asarray(nodes["valid"], bool) & (np.arange(N) >= fix_before)
+    free = valid & (np.arange(N) >= fix_before)
     freed = np.repeat(free, 4).astype(np.float64)
     fixed = 1.0 - freed
     E = ei.shape[0]
     for _ in range(iters):
-        Rt = np.swapaxes(_ypr_to_R(yaw[ei], pitch[ei], roll[ei]), -1, -2)
-        dp = p[ej] - p[ei]
-        r_t = np.einsum("eab,eb->ea", Rt, dp) - t_ij
-        r_y = np.arctan2(np.sin(yaw[ej] - yaw[ei] - yaw_ij), np.cos(yaw[ej] - yaw[ei] - yaw_ij))
-        r = np.concatenate([r_t, YAW_WEIGHT * r_y[:, None]], axis=1)
+        Rt, dp, r = _pg4_residual(p, yaw, pitch, roll, ei, ej, t_ij, yaw_ij)
         kd = np.stack([dp[:, 1], -dp[:, 0], np.zeros(E)], axis=-1)
         J = np.zeros((E, 4, 8))
         J[:, :3, :3], J[:, :3, 3], J[:, :3, 4:7] = -Rt, np.einsum("eab,eb->ea", Rt, kd), Rt
@@ -211,21 +226,90 @@ def pose_graph_4dof(nodes: dict, edges: dict, fix_before: int, iters: int):
         hub = np.sqrt(HUBER_DELTA / np.maximum(n, 1e-12))
         w = np.where(e_valid, weight * np.where(is_loop & (n > HUBER_DELTA), hub, 1.0), 0.0)
         J, r = w[:, None, None] * J, w[:, None] * r
-        H = np.zeros((4 * N, 4 * N))
-        g = np.zeros(4 * N)
         rows = (ei[:, None] * 4 + np.arange(4), ej[:, None] * 4 + np.arange(4))
-        for a in range(2):
-            np.add.at(g, rows[a], np.einsum("era,er->ea", J[..., 4 * a:4 * a + 4], r))
-            for c in range(2):
-                blk = np.einsum("era,erb->eab", J[..., 4 * a:4 * a + 4], J[..., 4 * c:4 * c + 4])
-                np.add.at(H, (rows[a][:, :, None], rows[c][:, None, :]), blk)
-        H = H + np.diag(1e-6 * np.maximum(np.diag(H), 1.0) + fixed)
-        H = H * freed[:, None] * freed[None, :] + np.diag(fixed)
-        g = g * freed
-        s = 1.0 / np.sqrt(np.maximum(np.diag(H), 1e-20))
-        dx = -(s * np.linalg.solve(H * (s[:, None] * s[None, :]), s * g)).reshape(N, 4)
+        if sparse:
+            dx = _sparse_step(J, r, rows, freed > 0).reshape(N, 4)
+        else:
+            H, g = np.zeros((4 * N, 4 * N)), np.zeros(4 * N)
+            for a in range(2):
+                np.add.at(g, rows[a], np.einsum("era,er->ea", J[..., 4 * a:4 * a + 4], r))
+                for c in range(2):
+                    blk = np.einsum("era,erb->eab", J[..., 4 * a:4 * a + 4],
+                                    J[..., 4 * c:4 * c + 4])
+                    np.add.at(H, (rows[a][:, :, None], rows[c][:, None, :]), blk)
+            H = H + np.diag(1e-6 * np.maximum(np.diag(H), 1.0) + fixed)
+            H = H * freed[:, None] * freed[None, :] + np.diag(fixed)
+            g = g * freed
+            s = 1.0 / np.sqrt(np.maximum(np.diag(H), 1e-20))
+            dx = -(s * np.linalg.solve(H * (s[:, None] * s[None, :]), s * g)).reshape(N, 4)
         p, yaw = p + dx[:, :3], yaw + dx[:, 3]
     return p, yaw
+
+
+def _sparse_step(J, r, rows, free):
+    """The Gauss-Newton update (4N,) of the weighted edge terms J (E, 4, 8),
+    r (E, 4) on coordinates ``rows`` (both ends' (E, 4)), over the ``free``
+    coordinates (the others 0): the dense step's damping and Jacobi scaling,
+    solved by sparse LU."""
+    import scipy.sparse
+    import scipy.sparse.linalg
+
+    at = np.full(free.shape[0], -1)
+    at[free] = np.arange(int(free.sum()))
+    g = np.zeros(free.shape[0])
+    ii, jj, vv = [], [], []
+    for a in range(2):
+        np.add.at(g, rows[a], np.einsum("era,er->ea", J[..., 4 * a:4 * a + 4], r))
+        for c in range(2):
+            blk = np.einsum("era,erb->eab", J[..., 4 * a:4 * a + 4], J[..., 4 * c:4 * c + 4])
+            ri = np.broadcast_to(at[rows[a]][:, :, None], blk.shape)
+            ci = np.broadcast_to(at[rows[c]][:, None, :], blk.shape)
+            keep = (ri >= 0) & (ci >= 0)
+            ii.append(ri[keep])
+            jj.append(ci[keep])
+            vv.append(blk[keep])
+    nf = int(free.sum())
+    H = scipy.sparse.coo_matrix((np.concatenate(vv), (np.concatenate(ii), np.concatenate(jj))),
+                                shape=(nf, nf)).tocsr()
+    d = H.diagonal()
+    H = H + scipy.sparse.diags(1e-6 * np.maximum(d, 1.0))
+    s = 1.0 / np.sqrt(np.maximum(H.diagonal(), 1e-20))
+    S = scipy.sparse.diags(s)
+    dx = np.zeros(free.shape[0])
+    dx[free] = -(s * scipy.sparse.linalg.spsolve((S @ H @ S).tocsc(), s * g[free]))
+    return dx
+
+
+def pose_graph_cost(p, yaw, nodes: dict, edges: dict) -> float:
+    """The float64 4-DoF cost at (p, yaw) of the graph (pitch and roll from
+    ``nodes``): over valid edges, weight^2 rho(|r|), rho(n) = n^2 on
+    sequential edges and Huber on loop edges (n^2 to HUBER_DELTA, 2 delta n -
+    delta^2 beyond), the cost whose stationary point the IRLS Gauss-Newton
+    seeks."""
+    _, _, pitch, roll, _, ei, ej, t_ij, yaw_ij, weight, is_loop, e_valid = _pg4_graph(
+        nodes, edges)
+    _, _, r = _pg4_residual(np.asarray(p, np.float64), np.asarray(yaw, np.float64), pitch, roll,
+                            ei, ej, t_ij, yaw_ij)
+    n = np.linalg.norm(r, axis=1)
+    rho = np.where(is_loop & (n > HUBER_DELTA), 2 * HUBER_DELTA * n - HUBER_DELTA ** 2, n * n)
+    return float(np.sum(np.where(e_valid, weight * weight * rho, 0.0)))
+
+
+def pose_graph_floor(p, yaw, nodes: dict, edges: dict) -> float:
+    """F: what storing (p, yaw) in float32 adds to the cost at a minimum,
+    sum over valid edges of weight^2 h |r(float32 p, yaw) - r(p, yaw)|^2, h
+    the IRLS weight of ``pose_graph_4dof`` (1, or HUBER_DELTA / |r| on a
+    loop edge past it); never negative."""
+    _, _, pitch, roll, _, ei, ej, t_ij, yaw_ij, weight, is_loop, e_valid = _pg4_graph(
+        nodes, edges)
+    p, yaw = np.asarray(p, np.float64), np.asarray(yaw, np.float64)
+    _, _, r = _pg4_residual(p, yaw, pitch, roll, ei, ej, t_ij, yaw_ij)
+    _, _, r32 = _pg4_residual(p.astype(np.float32).astype(np.float64),
+                              yaw.astype(np.float32).astype(np.float64), pitch, roll, ei, ej,
+                              t_ij, yaw_ij)
+    n = np.linalg.norm(r, axis=1)
+    h = np.where(is_loop & (n > HUBER_DELTA), HUBER_DELTA / np.maximum(n, 1e-12), 1.0)
+    return float(np.sum(np.where(e_valid, weight * weight * h * np.sum((r32 - r) ** 2, 1), 0.0)))
 
 
 def pose_graph_numbers(graphs: list) -> dict:
@@ -241,6 +325,46 @@ def pose_graph_numbers(graphs: list) -> dict:
         if not np.all(np.isfinite(d)):
             return {"pg_dp_m": float("inf")}
     return {"pg_dp_m": worst}
+
+
+def pcg_numbers(graphs: list) -> dict:
+    """Of the window's scalable (PCG) pose-graph solves, each against the
+    float64 Gauss-Newton of ``pose_graph_4dof`` on the same graph at the
+    same GN count (``ref``), C the float64 cost of ``pose_graph_cost``:
+
+    - ``pg_pcg_excess``: the worst (C(program) - C(ref)) / F, F the cost
+      of storing ref's answer in float32 (``pose_graph_floor``), the least
+      excess a float32 answer can have: a sound solve ends within a few F,
+      one that stops short or drifts ends thousands of F up. (A share of the solve's
+      descent, C(input) - C(ref), would not do: a session's first loop
+      leaves a graph its alignment already made consistent, whose descent
+      is about F.) The cost is blind to a move of the whole graph, the next
+      number is not;
+    - ``pg_pcg_fixed_m``: the farthest a held node (below ``fix_before``,
+      or invalid) moved, which the solve never moves (0);
+    - ``pg_pcg_dp_m`` (printed): the worst distance of a valid node to the
+      reference's position; a truncated CG is chaotic in its input's last
+      bits, so this reads the truncation, not a fault;
+    - ``pg_pcg_solves`` (printed): the solves judged."""
+    excess, fixed_m, dp_m = 0.0, 0.0, 0.0
+    for nodes, edges, fix, iters, (p_out, yaw_out), _cg, _group in graphs:
+        if not (np.all(np.isfinite(p_out)) and np.all(np.isfinite(yaw_out))):
+            excess = fixed_m = dp_m = math.inf
+            break
+        p_ref, yaw_ref = pose_graph_4dof(nodes, edges, fix, iters, sparse=True)
+        c_ref = pose_graph_cost(p_ref, yaw_ref, nodes, edges)
+        floor = pose_graph_floor(p_ref, yaw_ref, nodes, edges)
+        c_out = pose_graph_cost(p_out, yaw_out, nodes, edges)
+        excess = max(excess, (c_out - c_ref) / max(floor, np.finfo(np.float64).tiny))
+        p_in, p_out = (np.asarray(a, np.float64) for a in (nodes["p"], p_out))
+        valid = np.asarray(nodes["valid"], bool)
+        held = ~(valid & (np.arange(len(valid)) >= fix))
+        fixed_m = max(fixed_m, float(np.linalg.norm(p_out[held] - p_in[held], axis=1).max(
+            initial=0.0)))
+        dp_m = max(dp_m, float(np.linalg.norm(p_out[valid] - p_ref[valid], axis=1).max(
+            initial=0.0)))
+    return {"pg_pcg_excess": excess, "pg_pcg_fixed_m": fixed_m, "pg_pcg_dp_m": dp_m,
+            "pg_pcg_solves": float(len(graphs))}
 
 
 def loop_numbers(seq: gen.Sequence, loops: list, kf_times: dict, corrected: dict,

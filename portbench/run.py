@@ -11,16 +11,16 @@ files and entries, not an edit.
 
 One run: render the cell's sensor stream from ``--seed`` on the card, build
 the engine and the loop closer with ``svin_tpu_torch.apps.run_synchronous.
-build`` (float32 on the card), hand a ``laps`` cell's prior map to the
-closer, feed the warm-up frames, then feed frames through
+build`` (float32 on the card), hand a prior map (``laps``, ``resume``) to
+the closer, feed the warm-up frames, then feed frames through
 ``svin_tpu_torch.pipeline.run_events`` for ``--seconds`` of wall time, the
 keyframe callback doing what ``run_synchronous.main`` does (the closer, the
 global map, its refresh after each loop), with no output files; taps
 (``record.py``) keep a sample of the window solve's, the matchers' and the
-pose graph's calls. Then the reference (``reference.py``) judges what the
-window returned. ``--trace 1``
-profiles a stretch of the window's frames and reports the per-layer metrics
-instead of the end-to-end ones.
+pose graphs' calls (dense and scalable). Then the reference
+(``reference.py``) judges what the window returned. ``--trace 1`` profiles
+a stretch of the window's frames and reports the per-layer metrics instead
+of the end-to-end ones.
 
 Exits 2, printing no result, without enough CUDA cards; 3 if JAX or the JAX
 package was loaded.
@@ -210,8 +210,16 @@ def main(argv=None, root=".", device=None, patch=None) -> int:
             gmap.update_after_loop(corrected)
 
     engine.keyframe_callback = on_kf
+    # a mix with "prior_query": false hands its prior over as a saved
+    # session's map loads: keyframes, database rows and pose graph, with no
+    # query and no verification, so the load closes no loop
+    lc_cfg = closer.cfg.loop_closure
+    lc_enable = lc_cfg.enable
+    if not traffic.get("prior_query", True):
+        lc_cfg.enable = False
     for ex in seq.prior:
         closer.add_keyframe(ex)
+    lc_cfg.enable = lc_enable
     n_prior = len(closer.keyframes)
     phases["prior"] = time.perf_counter() - T_START
     if seq.prior:
@@ -267,6 +275,8 @@ def main(argv=None, root=".", device=None, patch=None) -> int:
     before = _solve_counters()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
+    kf_before, log_before = len(closer.keyframes), len(closer.pgo_log)
+    stats_before = dict(closer.stats)
     gc.collect()
     gc.freeze()  # the set-up's objects out of the collector's scans in the window
 
@@ -298,6 +308,7 @@ def main(argv=None, root=".", device=None, patch=None) -> int:
         return 3
 
     # ------------------------------------------------------- reference
+    t_ref = time.perf_counter()
     numbers = {}
     if results:
         t = np.array([r.timestamp for r in results])
@@ -318,9 +329,12 @@ def main(argv=None, root=".", device=None, patch=None) -> int:
                                               run.keyframes, first_loop))
         numbers.update(reference.pose_graph_numbers(kept["pose_graphs"]) if kept["pose_graphs"]
                        else {"pg_dp_m": float("inf")})
+        if kept["pose_graphs_pcg"]:  # none kept: a limit on these numbers reads nan and fails
+            numbers.update(reference.pcg_numbers(kept["pose_graphs_pcg"]))
     else:
         numbers["loops"] = float(len(loops))
     correct, checks = reference.judge(numbers, limits)
+    t_ref = time.perf_counter() - t_ref
 
     # ---------------------------------------------------------- result
     metrics = {}
@@ -353,7 +367,10 @@ def main(argv=None, root=".", device=None, patch=None) -> int:
     print(f"portbench: {args.workload} seed {args.seed}: {len(results)} frames in "
           f"{run.window_s:.3f} s, {run.keyframes} keyframes, {len(loops)} loops, "
           f"set-up {setup_s:.3f} s (cumulative: {phases}), {n_prior} prior keyframes, "
-          f"counters {run.counters}",
+          f"{kf_before} keyframes before the window, "
+          f"{sum(e['branch'] == 'scalable' for e in closer.pgo_log[log_before:])} scalable "
+          f"pose-graph updates in it, reference {t_ref:.3f} s, counters {run.counters}, "
+          f"closer {({k: v - stats_before.get(k, 0) for k, v in dict(closer.stats).items()})}",
           file=sys.stderr)
     for name in sorted(set(numbers) - set(checks)):
         print(f"reading {name} {numbers[name]!r} (not compared)", file=sys.stderr)

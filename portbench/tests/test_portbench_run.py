@@ -63,9 +63,11 @@ def test_tiny_laps_traced_reports_the_per_layer_metrics(tmp_path, recency):
     assert rc == 0
     assert list(res) == KEYS + ["breakdown", "checks"]
     assert res["correct"] is True, res["checks"]
-    # no card: the device metrics find nothing to read and are left out
-    assert set(res["metrics"]) == {"engine.self_ms_per_frame", "closer.ms_per_keyframe",
+    # no card: the device metrics find nothing to read and are left out; the
+    # host's and the program's own are there, later ones beside them
+    assert set(res["metrics"]) >= {"engine.self_ms_per_frame", "closer.ms_per_keyframe",
                                    "globalmap.ms_per_loop"}
+    assert not {m for m in res["metrics"] if m.startswith(("device.", "kernel."))}
     assert res["checks"]["loop_share"][0] > 0
     assert 0 <= res["checks"]["pg_dp_m"][0] <= 1e-6  # the pose graph solved in the window
     assert res["device"]["window_s"] > 0 and "busy_s" in res["device"]
